@@ -1,0 +1,129 @@
+"""3DGS scene training CLI.
+
+Counterpart of ``seganygaussians_tpu/cli/train_scene.py`` with the same flags
+plus ``--device``:
+
+    python -m seganygaussians_torch.cli.train_scene -s <scene> -m <out> [...]
+
+Runs on CUDA unless ``--device cpu`` is given; asking for CUDA on a machine
+without it raises.  On the card it turns TF32 off for matmuls and cuDNN (SSIM
+also guards its own convolution).  Saves, test evaluations and checkpoints
+fire at their exact iterations.  The network viewer is not ported: without
+``--disable_viewer`` the run says so and trains headless.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+import torch
+
+
+def main(argv=None):
+    from seganygaussians_torch import checkpoint as ckpt
+    from seganygaussians_torch.config import (
+        PipelineConfig, TrainHyper, add_group, extract, make_parser, save_cfg,
+    )
+    from seganygaussians_torch.models import gaussians as gm
+    from seganygaussians_torch.ops.rasterize import RasterConfig
+    from seganygaussians_torch.scene import ModelConfig, Scene
+    from seganygaussians_torch.train.scene_trainer import SceneTrainer
+    from seganygaussians_torch.utils.reporting import TrainingReporter
+
+    parser = make_parser("Scene training")
+    add_group(parser, TrainHyper, "Optimization Parameters")
+    parser.add_argument("--test_iterations", nargs="+", type=int, default=[7_000, 30_000])
+    parser.add_argument("--save_iterations", nargs="+", type=int, default=[7_000, 30_000])
+    parser.add_argument("--checkpoint_iterations", nargs="+", type=int, default=[])
+    parser.add_argument("--start_checkpoint", type=str, default=None)
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--backend", type=str, default="auto")
+    parser.add_argument("--raster_capacity", type=int, default=1 << 20)
+    parser.add_argument("--ip", type=str, default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=6009)
+    parser.add_argument("--disable_viewer", action="store_true")
+    parser.add_argument("--device", type=str, default="cuda")
+    args = parser.parse_args(argv)
+
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("--device cuda asked for, but no CUDA device is available")
+        # Full fp32 for any matmul or convolution on the card.
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    cfg = extract(ModelConfig, args)
+    hyper = extract(TrainHyper, args)
+    pipe = extract(PipelineConfig, args)
+    if not cfg.model_path:
+        cfg.model_path = os.path.join("./output", os.path.basename(cfg.source_path))
+    os.makedirs(cfg.model_path, exist_ok=True)
+    save_cfg(cfg.model_path, {"model": cfg, "opt": hyper, "pipe": pipe}, "cfg_args")
+
+    scene = Scene(cfg, seed=args.seed, device=device)
+    trainer = SceneTrainer(
+        state=scene.gaussians,
+        cameras=scene.get_train_cameras(),
+        spatial_lr_scale=scene.cameras_extent,
+        hyper=hyper,
+        sh_degree=cfg.sh_degree,
+        white_background=cfg.white_background,
+        config=RasterConfig(capacity=args.raster_capacity, backend=args.backend),
+        seed=args.seed,
+    )
+
+    start_iteration = 0
+    if args.start_checkpoint:
+        trainer.state, meta = ckpt.load_checkpoint(args.start_checkpoint, trainer.state)
+        start_iteration = int(meta.get("iteration", 0))
+        print(f"Resumed from {args.start_checkpoint} at iter {start_iteration}")
+
+    save_at = set(args.save_iterations) | {hyper.iterations}
+    test_at = set(args.test_iterations)
+    ckpt_at = set(args.checkpoint_iterations)
+    ckpt_dir = os.path.join(cfg.model_path, "checkpoints")
+    reporter = TrainingReporter(cfg.model_path)
+
+    if not args.disable_viewer:
+        print(f"the network viewer ({args.ip}:{args.port}) is not ported to this "
+              "package; continuing headless")
+
+    def on_iteration(tr, it, metrics):
+        if it in test_at and scene.get_test_cameras():
+            rep = tr.eval_report(scene.get_test_cameras())
+            reporter.eval_report(it, "test", rep["l1"], rep["psnr"])
+            alive = tr.state.alive
+            opac = gm.get_opacity(tr.state.params)[alive, 0].detach().cpu().numpy()
+            reporter.histogram(it, "scene/opacity", opac)
+            reporter.scalars(it, {"scene/n_alive": int(alive.sum())})
+        if it in save_at:
+            scene.gaussians = tr.state
+            print(f"[ITER {it}] saved {scene.save(it, target='scene')}")
+        if it in ckpt_at:
+            path = ckpt.save_checkpoint(
+                ckpt_dir, tr.state, it, extra={"active_sh_degree": tr.active_sh_degree}
+            )
+            print(f"[ITER {it}] checkpoint {path}")
+
+    def on_eval(tr, it, metrics):
+        print(f"[ITER {it}] loss={metrics['loss']:.5f} n_alive={int(metrics['n_alive'])} "
+              f"({metrics['elapsed_s']:.1f}s)", flush=True)
+        reporter.scalars(it, {"train/loss": metrics["loss"], "train/l1": metrics["l1"],
+                              "train/n_alive": metrics["n_alive"]})
+
+    trainer.on_iteration = on_iteration
+    trainer.on_eval = on_eval
+    try:
+        trainer.run(iterations=hyper.iterations, log_every=100,
+                    start_iteration=start_iteration)
+    finally:
+        reporter.close()
+    scene.gaussians = trainer.state
+    print("Training complete.")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

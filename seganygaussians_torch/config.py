@@ -1,9 +1,10 @@
 """Reflection-based CLI flag groups + persisted config.
 
-Counterpart of ``seganygaussians_tpu/config.py`` without the training
-hyper-parameter groups (they come with the training slice).  ``add_group``
-turns dataclass fields into argparse flags (bools become store_true); configs
-persist as JSON (``cfg_args.json``), and the reader also accepts the
+Counterpart of ``seganygaussians_tpu/config.py`` without the contrastive
+group (it comes with the contrastive slice).  ``add_group`` turns dataclass
+fields into argparse flags (bools become store_true); the groups are
+``ModelConfig`` and ``PipelineConfig`` (``make_parser``) and ``TrainHyper``,
+which the trainer CLI adds.  Configs persist as JSON (``cfg_args.json``), and the reader also accepts the
 reference's ``Namespace(...)`` repr without ``eval``.
 """
 
@@ -16,6 +17,7 @@ import json
 import os
 from typing import Any, Optional
 
+from seganygaussians_torch.models.gaussians import TrainHyper  # noqa: F401 (a group)
 from seganygaussians_torch.scene import ModelConfig
 
 _SHORTHANDS = {
@@ -97,3 +99,4 @@ def make_parser(description: str = "") -> argparse.ArgumentParser:
     add_group(parser, ModelConfig, "Loading Parameters")
     add_group(parser, PipelineConfig, "Pipeline Parameters")
     return parser
+

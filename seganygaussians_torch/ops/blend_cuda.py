@@ -1,17 +1,18 @@
-"""Forward blend on Hopper: the hand-written CUDA kernel and its wrapper.
+"""Blend on Hopper: the hand-written CUDA kernels and their wrappers.
 
 Counterpart of ``seganygaussians_tpu/ops/blend_pallas.py`` (``blend_fused``,
-which launches the Pallas ``_fwd_kernel``).  The kernel lives in
-``csrc/blend_fwd.cu``; it is compiled with ``nvcc`` for ``sm_90a`` at first
-use into ``build/torch_ext/`` and bound through ``ctypes`` (a plain C
-interface, so the build takes seconds, not the minutes a source including
-PyTorch's headers takes).
+which launches the Pallas ``_fwd_kernel`` and, for its gradient,
+``_bwd_kernel`` followed by ``segment_reduce_by_rank``).  The kernels live in
+``csrc/blend_fwd.cu`` and ``csrc/blend_bwd.cu``; each is compiled with
+``nvcc`` for ``sm_90a`` at first use into ``build/torch_ext/`` and bound
+through ``ctypes`` (a plain C interface, so a build takes seconds, not the
+minutes a source including PyTorch's headers takes).
 
-A CUDA tensor goes through the kernel or raises: a failed build, a refused
+A CUDA tensor goes through the kernels or raises: a failed build, a refused
 launch, or a channel count without a kernel instance all raise.  A CPU tensor
 takes the plain version in ``ops/blend.py``, which is differentiable.  The
-CUDA path is a ``torch.autograd.Function`` whose backward raises until the
-backward kernel is ported.
+CUDA path is a ``torch.autograd.Function`` whose forward is the forward kernel
+and whose backward is the backward kernel.
 """
 
 from __future__ import annotations
@@ -23,15 +24,16 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import Optional
 
 import torch
 
 from seganygaussians_torch.ops import blend as blend_torch
 from seganygaussians_torch.ops.binning import sort_instances
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "blend_fwd.cu"
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
-CHANNELS = (3, 4, 5, 32)  # kernel instances in csrc/blend_fwd.cu
+CHANNELS = (3, 4, 5, 32)  # kernel instances in csrc/blend_{fwd,bwd}.cu
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -42,6 +44,8 @@ NVCC_FLAGS = (
     "-fPIC",
     "-Xptxas=-v",  # registers, shared memory and spills, kept in build_log
 )
+_PTR = ctypes.c_void_p
+_INT = ctypes.c_int
 
 
 def _find_nvcc() -> str:
@@ -51,19 +55,23 @@ def _find_nvcc() -> str:
         return candidate
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: the forward blend kernel cannot be built")
+        raise RuntimeError("nvcc not found: the blend kernels cannot be built")
     return found
 
 
-class ForwardKernel:
-    """The forward-blend kernel: its build, its library and its launch count.
+class _CudaKernel:
+    """One ``csrc`` source: its build, its library and its launch count.
 
     ``launches`` goes up by one each time the kernel is launched, and nowhere
     else, so a caller can show that a run went through the kernel;
     ``launches_by_channels`` splits the same count by channel count C.
     """
 
+    name = ""  # source stem and C entry point prefix
+    argtypes: list = []
+
     def __init__(self):
+        self.source = CSRC / f"{self.name}.cu"
         self.launches = 0
         self.launches_by_channels = dict.fromkeys(CHANNELS, 0)
         self.build_log = ""
@@ -81,18 +89,18 @@ class ForwardKernel:
     def build(self) -> Path:
         """Compile the source (once per content and flag set); return the .so."""
         digest = hashlib.sha256(
-            SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
+            self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()
         ).hexdigest()[:16]
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        lib_path = BUILD_DIR / f"libblend_fwd_{digest}.so"
+        lib_path = BUILD_DIR / f"lib{self.name}_{digest}.so"
         if lib_path.exists():
             return lib_path
         tmp = BUILD_DIR / f".{lib_path.name}.{os.getpid()}.tmp"
-        cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+        cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building {SOURCE}:\n"
+                f"nvcc failed ({proc.returncode}) building {self.source}:\n"
                 f"{proc.stdout}\n{proc.stderr}"
             )
         os.replace(tmp, lib_path)
@@ -103,15 +111,62 @@ class ForwardKernel:
         with self._lock:
             if self._lib is None:
                 lib = ctypes.CDLL(str(self.build()))
-                lib.blend_fwd_launch.restype = ctypes.c_int
-                lib.blend_fwd_launch.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [
-                    ctypes.c_int,
-                    ctypes.c_int,
-                    ctypes.c_int,
-                    ctypes.c_void_p,
-                ]
+                fn = getattr(lib, f"{self.name}_launch")
+                fn.restype = ctypes.c_int
+                fn.argtypes = self.argtypes
                 self._lib = lib
             return self._lib
+
+    def _check(self, tensors: dict, dtypes: dict, device: torch.device) -> None:
+        for name, x in tensors.items():
+            if not x.is_cuda:
+                raise ValueError(f"{self.name} kernel: {name} is on {x.device}, not CUDA")
+            if x.device != device:
+                raise ValueError(f"{self.name} kernel: {name} on {x.device}, table on {device}")
+            if not x.is_contiguous():
+                raise ValueError(f"{self.name} kernel: {name} is not contiguous")
+            if x.dtype != dtypes.get(name, torch.float32):
+                raise TypeError(
+                    f"{self.name} kernel: {name} is {x.dtype}, "
+                    f"needs {dtypes.get(name, torch.float32)}"
+                )
+
+    def _channels(self, table: torch.Tensor, bg: torch.Tensor, tile_size: int) -> int:
+        if table.dim() != 2 or table.shape[1] < 7:
+            raise ValueError(f"{self.name} kernel: table shape {tuple(table.shape)}")
+        c = table.shape[1] - 6
+        if c not in CHANNELS:
+            raise ValueError(
+                f"{self.name} kernel has no instance for C={c} channels "
+                f"(instances: {CHANNELS})"
+            )
+        if bg.shape != (c,):
+            raise ValueError(f"{self.name} kernel: bg shape {tuple(bg.shape)}, needs ({c},)")
+        p = tile_size * tile_size
+        if p > 1024 or p % 32:
+            raise ValueError(f"{self.name} kernel: tile_size {tile_size} unsupported")
+        return c
+
+    def _launch(self, c: int, num_tiles: int, device: torch.device, *args) -> None:
+        lib = self.library()
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = getattr(lib, f"{self.name}_launch")(c, *args, stream)
+        if err != 0:
+            raise RuntimeError(f"{self.name} kernel launch failed: cudaError {err}")
+        if num_tiles:
+            self.launches += 1
+            self.launches_by_channels[c] += 1
+
+
+_RANKS = {"gauss_s": torch.int64, "tile_starts": torch.int32}
+
+
+class ForwardKernel(_CudaKernel):
+    """``csrc/blend_fwd.cu``: the Pallas ``_fwd_kernel``."""
+
+    name = "blend_fwd"
+    argtypes = [_INT] + [_PTR] * 7 + [_INT, _INT, _INT, _PTR]
 
     def __call__(
         self,
@@ -125,56 +180,88 @@ class ForwardKernel:
         """Launch the kernel; returns tiles (T, P, C), final_t (T, P),
         n_contrib (T, P) int32."""
         tensors = {"gauss_s": gauss_s, "tile_starts": tile_starts, "table": table, "bg": bg}
-        for name, x in tensors.items():
-            if not x.is_cuda:
-                raise ValueError(f"forward blend kernel: {name} is on {x.device}, not CUDA")
-            if x.device != table.device:
-                raise ValueError(f"forward blend kernel: {name} on {x.device}, table on {table.device}")
-            if not x.is_contiguous():
-                raise ValueError(f"forward blend kernel: {name} is not contiguous")
-        expected = {"gauss_s": torch.int64, "tile_starts": torch.int32,
-                    "table": torch.float32, "bg": torch.float32}
-        for name, dtype in expected.items():
-            if tensors[name].dtype != dtype:
-                raise TypeError(
-                    f"forward blend kernel: {name} is {tensors[name].dtype}, needs {dtype}"
-                )
-        if table.dim() != 2 or table.shape[1] < 7:
-            raise ValueError(f"forward blend kernel: table shape {tuple(table.shape)}")
-        c = table.shape[1] - 6
-        if c not in CHANNELS:
-            raise ValueError(
-                f"forward blend kernel has no instance for C={c} channels "
-                f"(instances: {CHANNELS})"
-            )
-        if bg.shape != (c,):
-            raise ValueError(f"forward blend kernel: bg shape {tuple(bg.shape)}, needs ({c},)")
+        self._check(tensors, _RANKS, table.device)
+        c = self._channels(table, bg, tile_size)
         p = tile_size * tile_size
-        if p > 1024 or p % 32:
-            raise ValueError(f"forward blend kernel: tile_size {tile_size} unsupported")
         num_tiles = tile_starts.shape[0] - 1
-
-        lib = self.library()
         dev = table.device
         tiles = torch.empty((num_tiles, p, c), dtype=torch.float32, device=dev)
         final_t = torch.empty((num_tiles, p), dtype=torch.float32, device=dev)
         n_contrib = torch.empty((num_tiles, p), dtype=torch.int32, device=dev)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.blend_fwd_launch(
-                c, gauss_s.data_ptr(), tile_starts.data_ptr(), table.data_ptr(),
-                bg.data_ptr(), tiles.data_ptr(), final_t.data_ptr(),
-                n_contrib.data_ptr(), num_tiles, grid_x, tile_size, stream,
-            )
-        if err != 0:
-            raise RuntimeError(f"forward blend kernel launch failed: cudaError {err}")
-        if num_tiles:
-            self.launches += 1
-            self.launches_by_channels[c] += 1
+        self._launch(
+            c, num_tiles, dev,
+            gauss_s.data_ptr(), tile_starts.data_ptr(), table.data_ptr(), bg.data_ptr(),
+            tiles.data_ptr(), final_t.data_ptr(), n_contrib.data_ptr(),
+            num_tiles, grid_x, tile_size,
+        )
         return tiles, final_t, n_contrib
 
 
+class BackwardKernel(_CudaKernel):
+    """``csrc/blend_bwd.cu``: the Pallas ``_bwd_kernel`` and the
+    ``segment_reduce_by_rank`` after it."""
+
+    name = "blend_bwd"
+    argtypes = [_INT] + [_PTR] * 9 + [ctypes.c_longlong, _INT, _INT, _INT, _PTR]
+
+    def __call__(
+        self,
+        gauss_s: torch.Tensor,  # (M,) int64
+        tile_starts: torch.Tensor,  # (T+1,) int32
+        table: torch.Tensor,  # (N, 6 + C) float32
+        bg: torch.Tensor,  # (C,)
+        g_tiles: torch.Tensor,  # (T, P, C) dL/d tiles
+        g_final_t: torch.Tensor,  # (T, P) dL/d final_t
+        tiles: torch.Tensor,  # (T, P, C) forward residual
+        final_t: torch.Tensor,  # (T, P) forward residual
+        grid_x: int,
+        tile_size: int,
+    ) -> torch.Tensor:
+        """Launch the kernel; returns d_table (N, 6 + C)."""
+        tensors = {"gauss_s": gauss_s, "tile_starts": tile_starts, "table": table, "bg": bg,
+                   "g_tiles": g_tiles, "g_final_t": g_final_t, "tiles": tiles,
+                   "final_t": final_t}
+        self._check(tensors, _RANKS, table.device)
+        c = self._channels(table, bg, tile_size)
+        p = tile_size * tile_size
+        num_tiles = tile_starts.shape[0] - 1
+        for name, shape in (("g_tiles", (num_tiles, p, c)), ("tiles", (num_tiles, p, c)),
+                            ("g_final_t", (num_tiles, p)), ("final_t", (num_tiles, p))):
+            if tuple(tensors[name].shape) != shape:
+                raise ValueError(
+                    f"{self.name} kernel: {name} shape {tuple(tensors[name].shape)}, "
+                    f"needs {shape}"
+                )
+        d_table = torch.zeros_like(table)
+        self._launch(
+            c, num_tiles, table.device,
+            gauss_s.data_ptr(), tile_starts.data_ptr(), table.data_ptr(), bg.data_ptr(),
+            g_tiles.data_ptr(), g_final_t.data_ptr(), tiles.data_ptr(), final_t.data_ptr(),
+            d_table.data_ptr(), table.shape[0], num_tiles, grid_x, tile_size,
+        )
+        return d_table
+
+
 FORWARD = ForwardKernel()
+BACKWARD = BackwardKernel()
+
+
+def blend_backward(
+    gauss_s, tile_starts, table, bg, tiles, final_t,
+    g_tiles: Optional[torch.Tensor], g_final_t: Optional[torch.Tensor],
+    grid_x: int, tile_size: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The backward kernel's (d_table (N, 6 + C), d_bg (C,)).  ``None``
+    cotangents are zeros, as in ``blend_pallas._fused_bwd``."""
+    if g_tiles is None:
+        g_tiles, d_bg = torch.zeros_like(tiles), torch.zeros_like(bg)
+    else:
+        d_bg = torch.einsum("tpc,tp->c", g_tiles, final_t)
+    if g_final_t is None:
+        g_final_t = torch.zeros_like(final_t)
+    d_table = BACKWARD(gauss_s, tile_starts, table, bg, g_tiles.float().contiguous(),
+                       g_final_t.float().contiguous(), tiles, final_t, grid_x, tile_size)
+    return d_table, d_bg
 
 
 class _BlendForward(torch.autograd.Function):
@@ -184,11 +271,58 @@ class _BlendForward(torch.autograd.Function):
             gauss_s, tile_starts, table, bg, grid_x, tile_size
         )
         ctx.mark_non_differentiable(n_contrib)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(gauss_s, tile_starts, table, bg, tiles, final_t)
+        ctx.grid = (grid_x, tile_size)
         return tiles, final_t, n_contrib
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError("backward blend kernel: training slice")
+    def backward(ctx, g_tiles, g_final_t, _g_n_contrib):
+        gauss_s, tile_starts, table, bg, tiles, final_t = ctx.saved_tensors
+        d_table, d_bg = blend_backward(
+            gauss_s, tile_starts, table, bg, tiles, final_t, g_tiles, g_final_t, *ctx.grid
+        )
+        return d_table, d_bg, None, None, None, None
+
+
+def blend_backward_plain(
+    gauss_s: torch.Tensor,  # (M,) depth rank per sorted instance (n = padding)
+    tile_starts: torch.Tensor,  # (T+1,)
+    table: torch.Tensor,  # (N, 6 + C)
+    bg: torch.Tensor,  # (C,)
+    g_tiles: Optional[torch.Tensor],  # (T, P, C) or None (zeros)
+    g_final_t: Optional[torch.Tensor],  # (T, P) or None (zeros)
+    grid: tuple[int, int, int],  # (grid_x, grid_y, tile_size)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The backward kernel's function in plain PyTorch: ``torch.autograd.grad``
+    through ``ops/blend.py:blend``, on any device.  Returns (d_table, d_bg)."""
+    grid_x, grid_y, tile_size = grid
+    n = table.shape[0]
+    starts = tile_starts.long()
+    live = int(starts[-1])
+    counts = starts[1:] - starts[:-1]
+    tile_s = torch.repeat_interleave(
+        torch.arange(counts.shape[0], device=table.device), counts
+    )
+    with torch.enable_grad():
+        table_ = table.detach().requires_grad_(True)
+        bg_ = bg.detach().requires_grad_(True)
+        out = blend_torch.blend(
+            gauss_s[:live].clamp_max(max(n - 1, 0)), tile_s, tile_starts,
+            table_[:, 0:2], table_[:, 2:5], table_[:, 5], table_[:, 6:], bg_,
+            grid_x, grid_y, tile_size,
+        )
+        pairs = [(o, g) for o, g in ((out.tiles, g_tiles), (out.final_t, g_final_t))
+                 if g is not None]
+        if not pairs:
+            return torch.zeros_like(table), torch.zeros_like(bg)
+        d_table, d_bg = torch.autograd.grad(
+            [o for o, _ in pairs], (table_, bg_), [g for _, g in pairs], allow_unused=True
+        )
+    return (
+        torch.zeros_like(table) if d_table is None else d_table,
+        torch.zeros_like(bg) if d_bg is None else d_bg,
+    )
 
 
 def blend_fused_plain(
@@ -228,12 +362,13 @@ def blend_fused(
     grid_y: int,
     tile_size: int,
 ) -> blend_torch.BlendOutput:
-    """(tile, depth) sort + forward blend.
+    """(tile, depth) sort + forward blend, differentiable.
 
     ``fields`` is a sequence of (N,) f32 columns in DEPTH-SORTED Gaussian
     order: (mean_x, mean_y, conic_a, conic_b, conic_c, opacity, color_0, ...);
     ``slot_rank``/``slot_tile`` come from ``binning.expand_slots``.  CUDA
-    tensors run the Hopper kernel; CPU tensors run ``ops/blend.py``.
+    tensors run the Hopper kernels (the backward one for the gradient);
+    CPU tensors run ``ops/blend.py``.
     """
     fields = tuple(fields)
     device = fields[0].device

@@ -9,9 +9,12 @@ the same call.
   binning    (binning.py)    — depth sort, slot expansion, (tile, depth) sort
   blend      (blend_cuda.py on CUDA tensors, blend.py otherwise)
 
-``ndc_offset`` is the densification gradient input: pass zeros and
-differentiate with respect to it (CPU path; the CUDA backward comes with the
-training slice).
+Everything is differentiable.  On CUDA tensors the blend's forward and
+backward are the two Hopper kernels (``csrc/blend_fwd.cu``,
+``csrc/blend_bwd.cu``), with no fallback to autograd through ``blend.py``;
+on CPU tensors autograd runs through ``blend.py``.  ``ndc_offset`` is the
+densification gradient input: pass zeros and differentiate with respect to
+it.
 """
 
 from __future__ import annotations

@@ -1,17 +1,21 @@
-"""Scene orchestrator, serving part: cameras + a saved scene's Gaussians.
+"""Scene orchestrator: cameras + the scene's Gaussians.
 
-Counterpart of ``seganygaussians_tpu/scene.py`` in eval mode with
-``need_scene=True`` (the only mode ported so far): resolves which PLY to load
-from ``(target, load_iteration)``, loads cameras with the resolution policy
-and computes the NeRF++ extent.  Building a fresh model from the point cloud
-(training) and the feature models come with later slices and raise.
+Counterpart of ``seganygaussians_tpu/scene.py`` with ``need_scene=True``:
+resolves which PLY to load from ``(target, load_iteration)``, loads cameras
+with the resolution policy and computes the NeRF++ extent.  Without a saved
+iteration (training from scratch) it builds a fresh model from the point
+cloud, copies the input PLY and writes ``cameras.json``, as the reference
+does; :meth:`Scene.save` writes ``point_cloud/iteration_N/{target}_point_cloud.ply``.
+The feature models come with a later slice and raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import random
+import shutil
 from typing import Optional
 
 from seganygaussians_torch.data import ply as plyio
@@ -64,7 +68,7 @@ def _auto_capacity(n: int, requested: int) -> int:
 
 
 class Scene:
-    """Host-side scene: cameras + the saved scene Gaussians on ``device``."""
+    """Host-side scene: cameras + the scene Gaussians on ``device``."""
 
     def __init__(
         self,
@@ -109,6 +113,18 @@ class Scene:
         )
         self.cameras_extent = info.radius
 
+        if not self.loaded_iter and self.model_path:
+            os.makedirs(self.model_path, exist_ok=True)
+            if os.path.exists(info.ply_path):
+                shutil.copyfile(info.ply_path, os.path.join(self.model_path, "input.ply"))
+            cams_json = [
+                {"id": i, "img_name": c.image_name, "width": c.width, "height": c.height,
+                 "fovx": c.fovx, "fovy": c.fovy}
+                for i, c in enumerate(info.train_cameras + info.test_cameras)
+            ]
+            with open(os.path.join(self.model_path, "cameras.json"), "w") as f:
+                json.dump(cams_json, f)
+
         train_infos = list(info.train_cameras)
         test_infos = list(info.test_cameras)
         if shuffle:
@@ -132,15 +148,26 @@ class Scene:
             self.train_cameras[scale] = load_all(train_infos, scale)
             self.test_cameras[scale] = load_all(test_infos, scale)
 
-        if not self.loaded_iter:
-            raise NotImplementedError(
-                f"no saved scene under {pc_dir}: initialising a model from the "
-                "point cloud belongs to the training slice of the port"
+        if self.loaded_iter:
+            self.gaussians = self.load_scene_state(self.loaded_iter, target)
+        else:
+            self.gaussians = gm.create_from_points(
+                info.points, info.colors, cfg.sh_degree,
+                _auto_capacity(len(info.points), cfg.capacity), device=device,
             )
-        self.gaussians = self.load_scene_state(self.loaded_iter, target)
 
     def _iter_dir(self, iteration: int) -> str:
         return os.path.join(self.model_path, "point_cloud", f"iteration_{iteration}")
+
+    def save(self, iteration: int, target: str = "scene") -> str:
+        """Write the live Gaussians as a 3DGS PLY; returns its path."""
+        d = gm.compact(self.gaussians)
+        path = os.path.join(self._iter_dir(iteration), f"{target}_point_cloud.ply")
+        plyio.save_gaussians_ply(
+            path, d["xyz"], d["features_dc"], d["features_rest"],
+            d["opacity"], d["scaling"], d["rotation"],
+        )
+        return path
 
     def load_scene_state(self, iteration: int, target: str = "scene") -> gm.GaussianState:
         path = os.path.join(self._iter_dir(iteration), f"{target}_point_cloud.ply")

@@ -26,6 +26,8 @@ def test_port_imports_no_jax():
     ]
     assert "seganygaussians_torch.ops.blend_cuda" in names
     assert "seganygaussians_torch.cli.render" in names
+    assert "seganygaussians_torch.train.scene_trainer" in names
+    assert "seganygaussians_torch.cli.train_scene" in names
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = os.path.abspath(ROOT)
     proc = subprocess.run(
@@ -33,7 +35,7 @@ def test_port_imports_no_jax():
         capture_output=True, text=True, env=env, cwd=ROOT, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) == len(names) >= 17
+    assert int(proc.stdout.strip()) == len(names) >= 25
 
 
 def test_chip_smoke_imports_no_jax():
