@@ -3,12 +3,12 @@
 
     python3 chip_smoke.py
 
-Builds the forward- and backward-blend kernels from
+Builds the forward-blend, backward-blend and scan-variants kernels from
 ``seganygaussians_torch/csrc`` (one ``nvcc`` each, started together) and runs
-six phases, each of which raises on failure:
+nine phases, each of which raises on failure:
 
 1. Kernel against its plain version (``ops/blend.py``) on the same CUDA
-   inputs: ~2000 Gaussians at 256×192, C ∈ {3, 4, 32}.  Tolerances are those
+   inputs: ~2000 Gaussians at 256×192, C ∈ {3, 4, 5, 32}.  Tolerances are those
    the Pallas kernel is held to: color 1e-4, final_t 5e-5, n_contrib exact.
 2. Full size: a seeded synthetic scene at the size of a trained Mip-NeRF 360
    scene (3,000,000 Gaussians, SH degree 3, 1297×840 views).  RGB through
@@ -20,7 +20,7 @@ six phases, each of which raises on failure:
    20,000-Gaussian PLY: one non-constant PNG per camera.
 4. The backward kernel against its plain version
    (``blend_cuda.blend_backward_plain``, autograd through ``ops/blend.py``):
-   phase 1's whole frames at C ∈ {3, 4, 32}, then 64 seeded tiles of phase
+   phase 1's whole frames at C ∈ {3, 4, 5, 32}, then 64 seeded tiles of phase
    2's full-size frames at C = 3 and C = 32, with seeded ``g_tiles`` and a
    nonzero ``g_final_t``.  ``d_table`` and ``d_bg`` within 2e-4 of each
    column's largest absolute value (the JAX package's Pallas-vs-XLA gradient
@@ -37,6 +37,31 @@ six phases, each of which raises on failure:
    flags of ``scripts/run_synth_e2e.sh`` stage 1 (2900 iterations): test
    PSNR at each test iteration, ≥ 35 dB at the end; the saved PLY renders
    through ``cli/render.py`` to non-constant PNGs.
+
+7. The scan micro-benchmark kernel (``csrc/scan_variants.cu``) through the
+   tool's ``run``: every variant at 1000 chunks on the (256, 256) block,
+   held against ``scan_variants_plain`` to 1e-4 relative; µs per chunk, the
+   operations bound at the whole card's rate (and, beside it, scaled to the
+   SMs the variant's grid fills), and ``torch.cumprod``'s time.
+8. ``contrastive_step`` at full width: phase 2's 3M Gaussians as a
+   ``FeatureState`` (32-dim features, K = 16 smoothing with dropout 0.5, 1000
+   rays, the CLI's defaults) against seeded synthetic mask stacks (24 discs
+   and boxes per view) for 4 orbit views at 1297×840.  ``build_smooth_map``
+   timed on the 3M points; the first step's ``d_table`` held against
+   ``blend_backward_plain`` on 64 tiles with the step's own cotangent (at
+   unit maximum, and clipped at its 0.99 quantile); 10
+   steps: ms/step, a stage split, peak memory, 10 forward and 10 backward
+   launches at C = 32, a fixed-draw loss that is finite and lower at the end.
+9. The contrastive CLI chain on a COPY of ``examples/synth_scene`` with phase
+   6's saved model: ``cli/get_scale.py`` (48 finite positive sidecars; one
+   of its RGB + depth + mask frames, C = 5 at 200×150, through the forward
+   kernel against the plain version),
+   ``cli/train_contrastive_feature.py`` with the flags of
+   ``scripts/run_synth_e2e.sh`` stage 3 but on the kernels (median logged
+   loss at most 0.45 of the untrained model's, median loss of the last five
+   logs below that of the first five, median ``cos_pos`` of the last five
+   logs ≥ 0.90), and
+   ``cli/render.py --target contrastive_feature`` (48 non-constant maps).
 
 The second-to-last line of output is a JSON object describing the kernels
 (times, launches, bound); the last is
@@ -77,6 +102,18 @@ SYNTH_E2E_FLAGS = [
     "--densify_grad_threshold", "0.001", "--save_iterations", "2900", "--disable_viewer",
 ]
 PSNR_GATE = 35.0
+TOL_SCAN = 1e-4  # relative: float32 products in another order; TF32 emulated for log_tri
+N_CONTRASTIVE_STEPS, N_MASKS = 10, 24
+# scripts/run_synth_e2e.sh stage 3 without ``--backend xla``: the kernels carry it.
+CONTRASTIVE_E2E_FLAGS = ["--iterations", "1500", "--num_sampled_rays", "512",
+                         "--raster_capacity", "32768"]
+# The JAX package's XLA-backend run of the same stage (BENCH_EVIDENCE.json,
+# ``contrastive``), printed beside the port's: a quality figure, not a gate.
+JAX_CONTRASTIVE_TRAJECTORY = {"loss": (0.584, 0.113), "cos_pos": (0.882, 0.957)}
+COS_POS_GATE = 0.90  # the JAX run ended at 0.957; the port's seeds at 0.95-0.97
+# Median logged loss over the untrained model's: nine runs and seeds on an
+# H100 gave 0.20-0.37 (medians 0.31-0.59 against 1.54-1.80).
+LOSS_RATIO_GATE = 0.45
 
 
 class SmokeFailure(RuntimeError):
@@ -325,13 +362,14 @@ def frame_stages(params, camera, capacity, device) -> dict[str, float]:
 
 
 def phase_small(device) -> dict[int, float]:
-    """Kernel vs plain version, whole frames, C ∈ {3, 4, 32}."""
+    """Kernel vs plain version, whole frames, C ∈ {3, 4, 5, 32} (5: RGB +
+    depth + mask, the mask-scale render's instance)."""
     from seganygaussians_torch.models import gaussians as gm
     from seganygaussians_torch.ops.camera import make_camera
     from seganygaussians_torch.ops.sh import eval_sh_color
 
     errors, frames = {}, {}
-    for c, seed in ((3, 1), (4, 2), (32, 3)):
+    for c, seed in ((3, 1), (4, 2), (5, 4), (32, 3)):
         s = random_scene(2000, seed, device, radius=1.0, log_scale=(-3.3, 0.5))
         params = gm.GaussianParams(**s)
         xyz, opa = params.xyz, gm.get_opacity(params)[:, 0]
@@ -549,17 +587,24 @@ def run_backward_plain(d, gauss_s, tile_starts, g_tiles, g_final_t):
                                 g_final_t, d["grid"])
 
 
-def compare_grads(got, want) -> float:
-    """Raise unless every column of d_table and d_bg is within TOL_GRAD of
-    that column's largest |plain|; return the largest absolute difference."""
-    worst = 0.0
+def grad_errors(got, want) -> tuple[float, float]:
+    """(largest |kernel − plain| over a column's largest |plain|, largest
+    absolute difference) over the columns of d_table and d_bg."""
+    worst_rel = worst_abs = 0.0
     for name, a, b in (("d_table", got[0], want[0]), ("d_bg", got[1][None], want[1][None])):
         check(bool(torch.isfinite(a).all()), f"backward kernel: non-finite {name}")
         scale = b.abs().amax(dim=0) + 1e-6
-        rel = float(((a - b).abs() / scale).max())
-        check(rel <= TOL_GRAD, f"backward kernel: {name} differs from the plain version by "
-              f"{rel:.3g} of a column's max (tolerance {TOL_GRAD})")
-        worst = max(worst, float((a - b).abs().max()))
+        worst_rel = max(worst_rel, float(((a - b).abs() / scale).max()))
+        worst_abs = max(worst_abs, float((a - b).abs().max()))
+    return worst_rel, worst_abs
+
+
+def compare_grads(got, want) -> float:
+    """Raise unless every column of d_table and d_bg is within TOL_GRAD of
+    that column's largest |plain|; return the largest absolute difference."""
+    rel, worst = grad_errors(got, want)
+    check(rel <= TOL_GRAD, f"backward kernel differs from the plain version by {rel:.3g} of a "
+          f"column's max (tolerance {TOL_GRAD})")
     return worst
 
 
@@ -603,6 +648,10 @@ def phase_backward(card, small_frames, full_frames) -> tuple[list, float]:
     entries = []
     for c, (d, tiles, visited, included) in sorted(full_frames.items()):
         grid_x, _, ts = d["grid"]
+        # The plain backward keeps the subset's (instances, 256, C) graph: at
+        # C = 32 tens of GB.  Hand the allocator's cached blocks back first so
+        # that their fragmentation does not decide whether it fits.
+        torch.cuda.empty_cache()
         g_tiles, g_final_t = grad_inputs(d, 200 + c)
         sub = subset(d, tiles)
         got = run_backward(d, sub[0], sub[2], g_tiles, g_final_t)
@@ -650,6 +699,26 @@ def fixed_view_loss(state, cam, gt, bg, config) -> float:
         return float(0.8 * losses.l1_loss(img, gt) + 0.2 * (1.0 - losses.ssim(img, gt)))
 
 
+class Spy:
+    """Wrap a callable: CUDA events around every call, the last call's
+    arguments and result kept."""
+
+    def __init__(self, fn):
+        self.fn, self.events, self.args, self.out = fn, [], None, None
+
+    def __call__(self, *args, **kwargs):
+        ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        self.events.append(ev)  # in order of entry: an outer call comes first
+        ev[0].record()
+        self.out = self.fn(*args, **kwargs)
+        ev[1].record()
+        self.args = args
+        return self.out
+
+    def ms(self) -> float:
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
 def train_stages(state, cam, gt, bg, hyper, config, extent) -> dict[str, float]:
     """Device ms of each stage of one train_step (the split of
     ``scene_trainer.train_step``), with CUDA events between the stages and
@@ -659,20 +728,9 @@ def train_stages(state, cam, gt, bg, hyper, config, extent) -> dict[str, float]:
     from seganygaussians_torch.ops import blend_cuda, losses
     from seganygaussians_torch.train.scene_trainer import _render
 
-    kernel_events = []
-    real = blend_cuda.BACKWARD
-
-    class Timed:
-        def __call__(self, *args):
-            ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            ev[0].record()
-            out = real(*args)
-            ev[1].record()
-            kernel_events.append(ev)
-            return out
-
+    spy = Spy(blend_cuda.BACKWARD)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-    blend_cuda.BACKWARD = Timed()
+    blend_cuda.BACKWARD = spy
     try:
         leaves = [p.detach().requires_grad_(True) for p in state.params]
         params = gm.GaussianParams(*leaves)
@@ -694,9 +752,9 @@ def train_stages(state, cam, gt, bg, hyper, config, extent) -> dict[str, float]:
         ev[4].record()
         torch.cuda.synchronize()
     finally:
-        blend_cuda.BACKWARD = real
-    check(len(kernel_events) == 1, f"{len(kernel_events)} backward launches in one step")
-    kernel = kernel_events[0][0].elapsed_time(kernel_events[0][1])
+        blend_cuda.BACKWARD = spy.fn
+    check(len(spy.events) == 1, f"{len(spy.events)} backward launches in one step")
+    kernel = spy.ms()
     backward = ev[2].elapsed_time(ev[3])
     return {"forward_render": ev[0].elapsed_time(ev[1]), "loss_ssim": ev[1].elapsed_time(ev[2]),
             "backward_kernel": kernel, "autograd_rest": backward - kernel,
@@ -833,9 +891,10 @@ def phase_train(device, card, s, capacity) -> dict[int, int]:
     return {3: bwd_rgb[3], 32: launches[32]}
 
 
-def phase_train_cli(device, card) -> None:
+def phase_train_cli(device, card, tmp) -> None:
     """The port's trainer CLI on examples/synth_scene with the e2e flags, then
-    the saved PLY through cli/render.py."""
+    the saved PLY through cli/render.py.  The model stays in ``tmp`` for
+    phase 9."""
     from PIL import Image
 
     from seganygaussians_torch.cli import render as render_cli
@@ -849,44 +908,544 @@ def phase_train_cli(device, card) -> None:
     while i < len(SYNTH_E2E_FLAGS) and not SYNTH_E2E_FLAGS[i].startswith("--"):
         test_its.append(int(SYNTH_E2E_FLAGS[i]))
         i += 1
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
-    try:
-        BACKWARD.reset_counts()
-        t0 = time.perf_counter()
-        check(train_cli.main(["-s", scene_dir, "-m", tmp, "--device", str(device),
-                              *SYNTH_E2E_FLAGS]) == 0, "cli/train_scene.py failed")
+    BACKWARD.reset_counts()
+    t0 = time.perf_counter()
+    check(train_cli.main(["-s", scene_dir, "-m", tmp, "--device", str(device),
+                          *SYNTH_E2E_FLAGS]) == 0, "cli/train_scene.py failed")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    records = [json.loads(line) for line in open(os.path.join(tmp, "metrics.jsonl"))]
+    psnr = {r["iter"]: r["test/psnr"] for r in records if "test/psnr" in r}
+    alive = {r["iter"]: int(r["scene/n_alive"]) for r in records if "scene/n_alive" in r}
+    check(sorted(psnr) == test_its, f"test iterations {psnr}")
+    for it in sorted(psnr):
+        print(f"phase 6: iteration {it}: test PSNR {psnr[it]:.3f} dB, "
+              f"{alive[it]} live Gaussians")
+    print(f"phase 6: {iterations} iterations in {wall:.1f} s "
+          f"({wall / iterations * 1e3:.2f} ms/iteration wall, evaluations and save "
+          f"included), backward launches {BACKWARD.launches}  [{card}]")
+    check(BACKWARD.launches == iterations,
+          f"backward launches {BACKWARD.launches} != {iterations}")
+    check(psnr[iterations] >= PSNR_GATE,
+          f"final test PSNR {psnr[iterations]:.2f} < {PSNR_GATE} dB")
+    ply = os.path.join(tmp, "point_cloud", f"iteration_{iterations}",
+                       "scene_point_cloud.ply")
+    check(os.path.exists(ply), f"{ply} not written")
+    check(render_cli.main(["-s", scene_dir, "-m", tmp, "--iteration", str(iterations),
+                           "--device", str(device)]) == 0, "cli/render.py failed")
+    n_png = 0
+    renders = os.path.join(tmp, "scene", f"ours_{iterations}")
+    for split in sorted(os.listdir(renders)):
+        out_dir = os.path.join(renders, split, "renders")
+        for name in sorted(os.listdir(out_dir)):
+            arr = np.asarray(Image.open(os.path.join(out_dir, name)))
+            check(arr.std() > 1.0, f"{split}/{name} is constant")
+            n_png += 1
+    print(f"phase 6: the saved PLY rendered through cli/render.py: {n_png} PNGs")
+
+
+def phase_scan(device, card) -> tuple[list, float]:
+    """The scan micro-benchmark kernel through the tool's ``run``, each
+    variant held against the plain version."""
+    from seganygaussians_torch.tools import bench_scan_variants as tool
+
+    n_chunk = tool.N_CHUNK
+    s = tool.seeded_block(device)
+    # --- the main path (the tool's entry point): counts at 0 just before,
+    # read just after.
+    tool.SCAN.reset_counts()
+    runs = {v: tool.run(v, n_chunk, device) for v in tool.VARIANTS}
+    torch.cuda.synchronize()
+    launches = {v: tool.SCAN.launches_of(v) for v in tool.VARIANTS}
+    # ---
+    library_us = {1: tool.cumprod_library_us(device, dim=1),
+                  0: tool.cumprod_library_us(device, dim=0)}
+    entries, worst = [], 0.0
+    for v in tool.VARIANTS:
+        us, out = runs[v]
+        check(launches[v] > 0, f"scan variant {v} was not launched")
+        plain = tool.scan_variants_plain(s, v, n_chunk, tf32=True)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        records = [json.loads(line) for line in open(os.path.join(tmp, "metrics.jsonl"))]
-        psnr = {r["iter"]: r["test/psnr"] for r in records if "test/psnr" in r}
-        alive = {r["iter"]: int(r["scene/n_alive"]) for r in records if "scene/n_alive" in r}
-        check(sorted(psnr) == test_its, f"test iterations {psnr}")
-        for it in sorted(psnr):
-            print(f"phase 6: iteration {it}: test PSNR {psnr[it]:.3f} dB, "
-                  f"{alive[it]} live Gaussians")
-        print(f"phase 6: {iterations} iterations in {wall:.1f} s "
-              f"({wall / iterations * 1e3:.2f} ms/iteration wall, evaluations and save "
-              f"included), backward launches {BACKWARD.launches}  [{card}]")
-        check(BACKWARD.launches == iterations,
-              f"backward launches {BACKWARD.launches} != {iterations}")
-        check(psnr[iterations] >= PSNR_GATE,
-              f"final test PSNR {psnr[iterations]:.2f} < {PSNR_GATE} dB")
-        ply = os.path.join(tmp, "point_cloud", f"iteration_{iterations}",
-                           "scene_point_cloud.ply")
-        check(os.path.exists(ply), f"{ply} not written")
-        check(render_cli.main(["-s", scene_dir, "-m", tmp, "--iteration", str(iterations),
-                               "--device", str(device)]) == 0, "cli/render.py failed")
-        n_png = 0
-        renders = os.path.join(tmp, "scene", f"ours_{iterations}")
-        for split in sorted(os.listdir(renders)):
-            out_dir = os.path.join(renders, split, "renders")
-            for name in sorted(os.listdir(out_dir)):
-                arr = np.asarray(Image.open(os.path.join(out_dir, name)))
-                check(arr.std() > 1.0, f"{split}/{name} is constant")
-                n_png += 1
-        print(f"phase 6: the saved PLY rendered through cli/render.py: {n_png} PNGs")
+        check(bool(torch.isfinite(out).all()), f"scan variant {v}: non-finite output")
+        err = float((out - plain).abs().max())
+        rel = float(((out - plain).abs() / plain.abs().clamp_min(1e-30)).max())
+        check(rel <= TOL_SCAN, f"scan variant {v} differs from the plain version by "
+              f"{rel:.3g} relative (tolerance {TOL_SCAN})")
+        worst = max(worst, rel)
+        t0 = time.perf_counter()
+        tool.scan_variants_plain(s, v, n_chunk, tf32=True)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        bound_us = tool.bound_us(v)
+        grid_us, sms = tool.bound_us_on_grid_sms(v)
+        # exp_only takes no cumulative product: no library call computes it.
+        lib_us = None if v == "exp_only" else library_us[0 if v == "roll_sub" else 1]
+        lib_txt = "none" if lib_us is None else f"{lib_us:.3f} us/call"
+        print(f"phase 7: {v:11s} {us:8.3f} us/chunk ({tool.P}x{tool.K}, {n_chunk} chunks, "
+              f"{launches[v]} launches), bound {bound_us:.4f} us by operations on the card "
+              f"({grid_us:.4f} us on the {sms} of {tool.NUM_SMS} SMs its grid fills), plain {plain_ms / n_chunk * 1e3:.1f} us/chunk (no yardstick "
+              f"of speed), torch.cumprod {lib_txt}; max |kernel - plain| {err:.3g} "
+              f"({rel:.3g} relative)  [{card}]")
+        entries.append({
+            "name": f"scan_variants[{v}]",
+            "route": "cuda",
+            "source": "seganygaussians_torch/csrc/scan_variants.cu",
+            "replaces": "tools/bench_scan_variants.py:42",
+            "launches": launches[v],
+            "max_abs_err": err,
+            "ms": us * n_chunk / 1e3,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_us * n_chunk / 1e3,
+            "bound_by": "operations",
+            "library_ms": None if lib_us is None else lib_us * n_chunk / 1e3,
+            "bound_ms_on_grid_sms": grid_us * n_chunk / 1e3,
+            "sms": sms,
+        })
+    if runs["log_tri"][0] >= runs["log_tri_hs"][0]:
+        print("phase 7: the TF32 tensor-core product (log_tri) is no faster than the fp32 one "
+              "(log_tri_hs) on this card at this size")
+    return entries, worst
+
+
+def synthetic_masks(seed, n_masks, width, height):
+    """A seeded SAM-like stack for one view: discs and boxes of mixed size
+    (radii from a third of the frame down to a fortieth) that together cover
+    most of it, and a 3D scale per mask that falls with its size."""
+    rng = np.random.default_rng(seed)
+    ys, xs = np.mgrid[:height, :width]
+    radii = np.sort(width * rng.uniform(0.025, 0.33, n_masks))[::-1]
+    masks = []
+    for i, r in enumerate(radii):
+        cx, cy = rng.uniform(0, width), rng.uniform(0, height)
+        if i % 2:
+            masks.append((np.abs(xs - cx) < r) & (np.abs(ys - cy) < 0.7 * r))
+        else:
+            masks.append((xs - cx) ** 2 + (ys - cy) ** 2 < r * r)
+    scales = (radii / width * 4.0 * rng.uniform(0.9, 1.1, n_masks)).astype(np.float32)
+    return np.stack(masks), scales
+
+
+def contrastive_stages(step) -> tuple[dict[str, float], Spy]:
+    """Device ms of each stage of one contrastive_step (``step`` runs one),
+    from CUDA events around the functions the step calls; also returns the
+    backward kernel's spy (its arguments hold the step's real cotangent)."""
+    from seganygaussians_torch.models import feature_gaussians as fgm
+    from seganygaussians_torch.models import optim
+    from seganygaussians_torch.ops import blend_cuda
+    from seganygaussians_torch.train import contrastive_trainer as ct
+
+    places = [(fgm, "smooth_features"), (ct, "rasterize"), (torch.autograd, "grad"),
+              (blend_cuda, "BACKWARD"), (optim, "adam_update")]
+    spies = {name: Spy(getattr(mod, name)) for mod, name in places}
+    ends = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for mod, name in places:
+        setattr(mod, name, spies[name])
+    try:
+        ends[0].record()
+        step()
+        ends[1].record()
+        torch.cuda.synchronize()
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        for mod, name in places:
+            setattr(mod, name, spies[name].fn)
+    for name, n in (("smooth_features", 1), ("rasterize", 1), ("BACKWARD", 1),
+                    ("adam_update", 2)):
+        check(len(spies[name].events) == n, f"{len(spies[name].events)} calls of {name} in a step")
+    smooth, raster, grad = (spies[k].events[0] for k in ("smooth_features", "rasterize", "grad"))
+    kernel = spies["BACKWARD"].ms()
+    return {
+        "draws_gt_weights": ends[0].elapsed_time(smooth[0]),
+        "smoothing_gather": smooth[0].elapsed_time(smooth[1]),
+        "forward_render": smooth[1].elapsed_time(raster[1]),
+        "loss_on_rays": raster[1].elapsed_time(grad[0]),
+        "backward_kernel": kernel,
+        "autograd_rest": grad[0].elapsed_time(grad[1]) - kernel,
+        "adam": grad[1].elapsed_time(ends[1]),
+        "step_total": ends[0].elapsed_time(ends[1]),
+    }, spies["BACKWARD"]
+
+
+def step_backward_errors(args, device):
+    """The backward kernel against ``blend_backward_plain`` on 64 seeded tiles
+    under a training step's own cotangent (``args`` are the arguments the
+    step gave the kernel): nonzero on the sampled rays' pixels, plus the
+    feature-norm term everywhere, and no ``g_final_t``.
+
+    The backward is linear in the cotangent, so it is compared at unit
+    maximum: the raw one averages over R² pairs and H·W pixels, and most of it
+    would sit under ``grad_errors``' 1e-6 floor.  A few hundred pixels whose
+    feature vector is nearly zero carry entries thousands of times the rest
+    (the normalisation's 1/|x|) and alone set each column's maximum, so the
+    comparison is made a second time with the cotangent clipped at the 0.99
+    quantile of its nonzero pixels, where the ordinary pixels decide.
+    Returns ((rel, abs) at unit maximum, (rel, abs) clipped, a description)."""
+    from seganygaussians_torch.ops.blend_cuda import BACKWARD, FORWARD, blend_backward_plain
+
+    gauss_s, tile_starts, table, bg, g_tiles, g_final_t, _, _, grid_x, ts = args
+    check(table.shape[1] == 38, f"the step's blend table has {table.shape[1]} columns")
+    check(float(g_final_t.abs().max()) == 0, "the step has a final_t cotangent")
+    per_pixel = g_tiles.abs().amax(dim=2)
+    lit_pixels = per_pixel[per_pixel > 0]
+    check(lit_pixels.numel() > 0, "the step's cotangent is all zero")
+    scale = lit_pixels.max()
+    clip = torch.quantile(lit_pixels, 0.99)
+    starts = tile_starts.long()
+    counts = starts[1:] - starts[:-1]
+    grid = (grid_x, counts.shape[0] // grid_x, ts)
+    tile_s = torch.repeat_interleave(torch.arange(counts.shape[0], device=device), counts)
+    d = dict(gauss_s=gauss_s[: int(starts[-1])], tile_s=tile_s, tile_starts=tile_starts)
+    lit = torch.nonzero((per_pixel.amax(dim=1) > 0) & (counts > 0)).flatten().cpu()
+    pick = torch.randperm(lit.numel(), generator=torch.Generator().manual_seed(8))
+    tiles = lit[pick[:N_SUBSET_TILES]].sort().values
+    rows = tiles.to(device)
+    sub = subset(d, tiles)
+    res = FORWARD(sub[0], sub[2], table, bg, grid_x, ts)
+
+    def errors(g):
+        torch.cuda.empty_cache()  # the plain backward's graph needs contiguous tens of GB
+        got = (BACKWARD(sub[0], sub[2], table, bg, g, torch.zeros_like(g_final_t), res[0],
+                        res[1], grid_x, ts),
+               torch.einsum("tpc,tp->c", g[rows], res[1][rows]))
+        g_sub = torch.zeros_like(g)
+        g_sub[rows] = g[rows]
+        want = blend_backward_plain(sub[0], sub[2], table, bg, g_sub, None, grid)
+        torch.cuda.synchronize()
+        return grad_errors(got, want), float(want[0].abs().max())
+
+    unit, largest = errors(g_tiles / scale)
+    clipped, largest_clipped = errors(g_tiles.clamp(-clip, clip) / clip)
+    info = (f"scaled to unit maximum from {float(scale):.3g}; {lit_pixels.numel()} nonzero "
+            f"pixels, {int((per_pixel > 1e-3 * scale).sum())} above a thousandth of the largest; "
+            f"largest |d_table| {largest:.3g}; clipped at the 0.99 quantile {float(clip):.3g}: "
+            f"largest |d_table| {largest_clipped:.3g}")
+    return unit, clipped, info
+
+
+def phase_contrastive(device, card, s, capacity) -> dict[str, int]:
+    """contrastive_step at full width on phase 2's scene; returns the forward
+    and backward kernels' C = 32 launches over the main-path window."""
+    from seganygaussians_torch.models import feature_gaussians as fgm
+    from seganygaussians_torch.models import optim
+    from seganygaussians_torch.ops.blend_cuda import BACKWARD, FORWARD
+    from seganygaussians_torch.ops.quantile import fit_quantile_transform
+    from seganygaussians_torch.ops.rasterize import RasterConfig
+    from seganygaussians_torch.seg.scale_gate import init_scale_gate
+    from seganygaussians_torch.train import contrastive_trainer as ct
+
+    hyper = ct.ContrastiveHyper()  # the CLI's defaults: 1000 rays, K = 16, dropout 0.5
+    xyz = s["xyz"].contiguous()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    smooth_map = fgm.build_smooth_map(xyz, hyper.smooth_k)
+    torch.cuda.synchronize()
+    knn_s = time.perf_counter() - t0
+    check(tuple(smooth_map.shape) == (N_FULL, hyper.smooth_k), "smooth map shape")
+    check(int(smooth_map.min()) >= 0 and int(smooth_map.max()) < N_FULL, "smooth map range")
+    fallback = float((smooth_map[:, 1:] == smooth_map[:, :1]).any(dim=1).float().mean())
+    print(f"phase 8: build_smooth_map (K={hyper.smooth_k}) on {N_FULL} points: {knn_s:.2f} s, "
+          f"{fallback:.2%} of rows with a self fallback, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB  [{card}]")
+    check(fallback < 0.01, "the neighbour map fell back to self on ≥ 1 % of the points")
+
+    g = torch.Generator(device=device).manual_seed(23)
+    feats = torch.randn(N_FULL, 32, generator=g, device=device) * 1e-2
+    state = fgm.FeatureState(
+        geom=fgm.FrozenGeometry(xyz=xyz, scaling=s["scaling"], rotation=s["rotation"],
+                                opacity=s["opacity"],
+                                alive=torch.ones(N_FULL, dtype=torch.bool, device=device)),
+        point_features=feats, smooth_map=smooth_map,
+        opt=optim.adam_init(fgm.FeatureParams(feats)),
+    )
+    cams = orbit_cameras(N_TRAIN_VIEWS, W_FULL, H_FULL)
+    stacks = [synthetic_masks(300 + i, N_MASKS, W_FULL, H_FULL) for i in range(N_TRAIN_VIEWS)]
+    bundles = [ct.build_mask_bundle(m, sc, N_MASKS, device=device) for m, sc in stacks]
+    covered = float(np.mean([m.any(0).mean() for m, _ in stacks]))
+    all_scales = np.concatenate([sc for _, sc in stacks])
+    consts = ct.ContrastiveConsts(
+        upper_bound_scale=torch.tensor(float(all_scales.max()), device=device),
+        qt=fit_quantile_transform(torch.from_numpy(all_scales).to(device)),
+    )
+    gate = init_scale_gate(torch.Generator().manual_seed(23), 32, device=device)
+    gate_opt = optim.adam_init(gate)
+    config = RasterConfig(capacity=capacity)
+    print(f"phase 8: synthetic masks: {N_MASKS} per view over {N_TRAIN_VIEWS} views, covering "
+          f"{covered:.0%} of the frame; scales {all_scales.min():.3f}..{all_scales.max():.3f}")
+
+    fixed_draws = ct.draw_step(torch.Generator(device=device).manual_seed(99), bundles[0],
+                               hyper, hyper.smooth_k)
+
+    def fixed_loss(state, gate) -> float:
+        with torch.no_grad():
+            q_scales, gt = ct._sample_scales_and_gt(fixed_draws, bundles[0], consts)
+            ppw = ct._pixel_weights(bundles[0], fixed_draws.ray_idx)
+            loss, aux = ct.contrastive_loss(state.point_features, gate, state, cams[0], consts,
+                                            fixed_draws, q_scales, gt, ppw, hyper, config)
+        check(not aux["overflow"], "fixed-draw render overflowed")
+        return float(loss)
+
+    loss_before = fixed_loss(state, gate)
+    check(math.isfinite(loss_before), "fixed-draw loss not finite")
+
+    def step(i, state, gate, gate_opt):
+        return ct.contrastive_step(state, gate, gate_opt, cams[i], bundles[i], consts, hyper,
+                                   config, generator=g)
+
+    # Two steps outside the counted window, both discarded: a warm-up
+    # (allocator, first launches), then an instrumented one for the stage
+    # split and for the backward kernel's d_table against the plain version
+    # on 64 tiles, with the step's own cotangent (nonzero on the sampled
+    # rays' pixels plus the feature-norm term everywhere; g_final_t absent).
+    step(1, state, gate, gate_opt)
+    holder = {}
+    stages, spy = contrastive_stages(
+        lambda: holder.update(out=step(1, state, gate, gate_opt)))
+    warm_state, warm_gate, warm_gate_opt, aux = holder.pop("out")
+    check(not aux["overflow"], "instrumented step overflowed")
+    (rel, err), (rel_clip, err_clip), info = step_backward_errors(spy.args, device)
+    print(f"phase 8: a step's d_table vs blend_backward_plain on {N_SUBSET_TILES} tiles with the "
+          f"step's own cotangent ({info}): max |kernel - plain| {err:.3g}, {rel:.3g} of a "
+          f"column's max; clipped: {err_clip:.3g}, {rel_clip:.3g} of a column's max")
+    for what, r in (("", rel), (" clipped at its 0.99 quantile", rel_clip)):
+        check(r <= TOL_GRAD, f"backward kernel under the step's cotangent{what} differs from "
+              f"the plain version by {r:.3g} of a column's max (tolerance {TOL_GRAD})")
+    del spy, warm_state, warm_gate, warm_gate_opt
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # --- the main path: counts at 0 just before, read just after.
+    FORWARD.reset_counts()
+    BACKWARD.reset_counts()
+    step_ms, host_ms, losses = [], [], []
+    for it in range(N_CONTRASTIVE_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
+        start.record()
+        state, gate, gate_opt, aux = step(it % N_TRAIN_VIEWS, state, gate, gate_opt)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - h0) * 1e3)
+        step_ms.append(start.elapsed_time(end))
+        check(not aux["overflow"], f"contrastive step {it + 1} overflowed its capacity")
+        losses.append(float(aux["loss"]))
+        check(math.isfinite(losses[-1]), f"contrastive step {it + 1}: loss {losses[-1]}")
+    fwd, bwd = dict(FORWARD.launches_by_channels), dict(BACKWARD.launches_by_channels)
+    # ---
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n = N_CONTRASTIVE_STEPS
+    check(fwd[32] == n and sum(fwd.values()) == n, f"forward launches {fwd} over {n} steps")
+    check(bwd[32] == n and sum(bwd.values()) == n, f"backward launches {bwd} over {n} steps")
+    for name, x in (("features", state.point_features), ("mu", state.opt.mu.point_features),
+                    ("nu", state.opt.nu.point_features), ("gate.w", gate.w), ("gate.b", gate.b)):
+        check(bool(torch.isfinite(x).all()), f"non-finite {name}")
+    loss_after = fixed_loss(state, gate)
+    check(loss_after < loss_before, f"fixed-draw loss did not drop: {loss_before} -> {loss_after}")
+    print(f"phase 8: {n} contrastive steps at {W_FULL}x{H_FULL}, {N_FULL} Gaussians, "
+          f"{hyper.num_sampled_rays} rays: fixed-draw loss {loss_before:.5f} -> {loss_after:.5f} "
+          f"(per-step losses {losses[0]:.4f} .. {losses[-1]:.4f}); ms/step median "
+          f"{float(np.median(step_ms)):.3f} (device, CUDA events; host "
+          f"{float(np.median(host_ms)):.3f}); forward launches {fwd}, backward launches {bwd}; "
+          f"rfn {float(aux['rfn']):.4f}, cos_pos {float(aux['cosine_pos']):.4f}, cos_neg "
+          f"{float(aux['cosine_neg']):.4f}; peak memory {peak_gb:.2f} GB  [{card}]")
+    print(f"phase 8: contrastive-step stages (one instrumented step), device ms: "
+          f"{json.dumps({k: round(v, 3) for k, v in stages.items()})}  [{card}]")
+    return {"fwd": fwd[32], "bwd": bwd[32]}
+
+
+def untrained_contrastive_metrics(device, src, model_dir, num_rays, capacity) -> dict:
+    """Mean loss and cos_pos of the model the contrastive CLI starts from
+    (same scene, seeds and hyper-parameters), over 8 views: the ``aux`` of one
+    ``contrastive_step`` per view, each taken from the initial state."""
+    from seganygaussians_torch.ops.rasterize import RasterConfig
+    from seganygaussians_torch.scene import ModelConfig, Scene
+    from seganygaussians_torch.seg.scale_gate import init_scale_gate
+    from seganygaussians_torch.train import contrastive_trainer as ct
+
+    cfg = ModelConfig(source_path=src, model_path=model_dir, need_masks=True)
+    scene = Scene(cfg, need_scene=False, need_features_model=True, load_iteration=-1,
+                  target="contrastive_feature", mode="train", device=device)
+    t = ct.ContrastiveTrainer(
+        feat_state=scene.feature_gaussians,
+        gate_params=init_scale_gate(torch.Generator().manual_seed(0), 32, device=device),
+        cameras=scene.get_train_cameras(),
+        hyper=ct.ContrastiveHyper(num_sampled_rays=num_rays),
+        config=RasterConfig(capacity=capacity),
+    )
+    rows = []
+    for idx in range(8):
+        bundle, cam = t._prep(idx)
+        *_, aux = ct.contrastive_step(t.feat_state, t.gate_params, t.gate_opt, cam, bundle,
+                                      t.consts, t.hyper, t.config, generator=t.generator)
+        rows.append((float(aux["loss"]), float(aux["cosine_pos"])))
+    return {"loss": float(np.mean([r[0] for r in rows])),
+            "cos_pos": float(np.mean([r[1] for r in rows]))}
+
+
+def depth_frame_entry(device, card, src, model_dir, capacity, launches) -> dict:
+    """The forward kernel against the plain version on one frame of
+    ``cli/get_scale.py``'s render: the saved scene model, the first training
+    view at 200×150, SH degree 0 RGB + depth + mask (C = 5), zero background,
+    as ``preprocess.compute_mask_scales`` renders it.  Returns the ``kernels``
+    entry of this instance."""
+    from seganygaussians_torch.models import gaussians as gm
+    from seganygaussians_torch.ops.projection import preprocess
+    from seganygaussians_torch.ops.sh import eval_sh_color
+    from seganygaussians_torch.scene import ModelConfig, Scene
+
+    cfg = ModelConfig(source_path=src, model_path=model_dir, need_masks=True)
+    scene = Scene(cfg, load_iteration=-1, mode="train", target="scene", shuffle=False,
+                  device=device)
+    state, cam = scene.gaussians, scene.get_train_cameras()[0].params
+    with torch.no_grad():
+        live = state.alive
+        p = gm.GaussianParams(*(x[live] for x in state.params))
+        opa, scales, rots = gm.get_opacity(p)[:, 0], gm.get_scaling(p), gm.get_rotation(p)
+        _, _, center = cam.tensors(device)
+        depths = preprocess(p.xyz, cam, scales=scales, rotations=rots, opacities=opa).depths
+        colors = torch.cat([eval_sh_color(0, gm.get_shs(p), p.xyz, center), depths[:, None],
+                            state.seg_mask[live][:, None]], dim=1)
+        check(colors.shape[1] == 5, f"the depth render has {colors.shape[1]} channels")
+        d = blend_inputs(p.xyz, opa, scales, rots, colors, cam, capacity,
+                         torch.zeros(5, device=device))
+        out = run_kernel(d)
+        plain = run_plain(d, d["gauss_s"], d["tile_s"], d["tile_starts"])
+        torch.cuda.synchronize()
+        err = compare(out, plain)
+        check(int(out[2].max()) > 0 and float(plain.tiles[..., 3].max()) > 0,
+              "the depth frame is empty")
+        kernel_ms = float(np.median(cuda_time_ms(lambda: run_kernel(d), warmup=2, iters=10)))
+        plain_ms = float(np.median(cuda_time_ms(
+            lambda: run_plain(d, d["gauss_s"], d["tile_s"], d["tile_starts"]), warmup=1, iters=3)))
+        visited, included = work_counts(d, out[2])
+        bound_ms, bound_by, nbytes, ops = bound(d, visited, included)
+    print(f"phase 9: blend_fwd[C=5] on a get_scale frame ({cam.width}x{cam.height}, "
+          f"{p.xyz.shape[0]} Gaussians, {d['num_instances']} instances, largest depth "
+          f"{float(plain.tiles[..., 3].max()):.3f}): kernel {kernel_ms:.4f} ms, bound "
+          f"{bound_ms:.5f} ms by {bound_by} ({nbytes} B, {ops} ops), plain {plain_ms:.3f} ms "
+          f"(whole frame; no yardstick of speed); max |kernel - plain| {err:.3g}, n_contrib "
+          f"exact  [{card}]")
+    return {
+        "name": "blend_fwd[C=5]",
+        "route": "cuda",
+        "source": "seganygaussians_torch/csrc/blend_fwd.cu",
+        "replaces": "seganygaussians_tpu/ops/blend_pallas.py:252",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }
+
+
+def phase_contrastive_cli(device, card, model_dir) -> tuple[dict[str, int], dict]:
+    """get_scale → train_contrastive_feature → render --target
+    contrastive_feature, on a copy of examples/synth_scene (get_scale writes
+    its sidecars into the source directory) with phase 6's saved model."""
+    from seganygaussians_torch.cli import get_scale, render, train_contrastive_feature
+    from seganygaussians_torch.ops.blend_cuda import BACKWARD, FORWARD
+
+    src = os.path.join(model_dir, "scene_copy")
+    shutil.copytree(os.path.join(ROOT, "examples", "synth_scene"), src)
+    committed = os.path.join(src, "mask_scales_committed")
+    os.rename(os.path.join(src, "mask_scales"), committed)
+    common = ["-s", src, "-m", model_dir, "--device", str(device)]
+
+    FORWARD.reset_counts()
+    BACKWARD.reset_counts()
+    t0 = time.perf_counter()
+    check(get_scale.main(common + ["--raster_capacity", "32768"]) == 0, "cli/get_scale.py failed")
+    torch.cuda.synchronize()
+    scale_s = time.perf_counter() - t0
+    names = sorted(os.listdir(os.path.join(src, "mask_scales")))
+    check(names == sorted(os.listdir(committed)) and len(names) == 48,
+          f"{len(names)} mask-scale sidecars")
+    rel = []
+    for name in names:
+        new = torch.load(os.path.join(src, "mask_scales", name), weights_only=False)
+        old = torch.load(os.path.join(committed, name), weights_only=False)
+        check(new.shape == old.shape and bool(torch.isfinite(new).all())
+              and float(new.min()) > 0, f"mask scales of {name}: {new}")
+        rel.append(((new - old).abs() / old).numpy())
+    depth_launches = FORWARD.launches_by_channels[5]
+    check(depth_launches == 48, f"get_scale launched the C=5 kernel {depth_launches} times")
+    print(f"phase 9: cli/get_scale.py wrote {len(names)} sidecars in {scale_s:.1f} s "
+          f"({depth_launches} C=5 launches); median relative difference to the committed "
+          f"sidecars {float(np.median(np.concatenate(rel))):.3f} (another trained model: "
+          f"not a gate)  [{card}]")
+    depth_entry = depth_frame_entry(device, card, src, model_dir, 32768, depth_launches)
+
+    flags = CONTRASTIVE_E2E_FLAGS
+    iterations = int(flags[flags.index("--iterations") + 1])
+    untrained = untrained_contrastive_metrics(
+        device, src, model_dir, int(flags[flags.index("--num_sampled_rays") + 1]),
+        int(flags[flags.index("--raster_capacity") + 1]))
+    FORWARD.reset_counts()
+    BACKWARD.reset_counts()
+    t0 = time.perf_counter()
+    check(train_contrastive_feature.main(common + flags) == 0,
+          "cli/train_contrastive_feature.py failed")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"fwd": FORWARD.launches_by_channels[32], "bwd": BACKWARD.launches_by_channels[32]}
+    records = [json.loads(line) for line in open(os.path.join(model_dir, "metrics.jsonl"))]
+    logs = [r for r in records if "contrastive/loss" in r]
+    check(len(logs) == iterations // 100, f"{len(logs)} contrastive log rows")
+    print("phase 9: iteration: loss / cos_pos / cos_neg / rfn at each log: " + "; ".join(
+        f"{r['iter']}: {r['contrastive/loss']:.3f} / {r['contrastive/cos_pos']:.3f} / "
+        f"{r['contrastive/cos_neg']:.3f} / {r['contrastive/rfn']:.3f}" for r in logs))
+    first, last = logs[0], logs[-1]
+    median_loss = float(np.median([r["contrastive/loss"] for r in logs]))
+    early_loss = float(np.median([r["contrastive/loss"] for r in logs[:5]]))
+    late_loss = float(np.median([r["contrastive/loss"] for r in logs[-5:]]))
+    late_cos_pos = float(np.median([r["contrastive/cos_pos"] for r in logs[-5:]]))
+    jax_ref = JAX_CONTRASTIVE_TRAJECTORY
+    print(f"phase 9: {iterations} iterations in {wall:.1f} s ({wall / iterations * 1e3:.2f} "
+          f"ms/iteration wall, set-up and save included), C=32 launches {launches}; untrained "
+          f"loss {untrained['loss']:.3f} and cos_pos {untrained['cos_pos']:.3f} (mean of 8 "
+          f"views); median logged loss {median_loss:.3f} ({median_loss / untrained['loss']:.3f} "
+          f"of the untrained), median loss of the first 5 logs {early_loss:.3f} and of the "
+          f"last 5 {late_loss:.3f}, median cos_pos of the last 5 logs {late_cos_pos:.3f}; first -> last log: loss {first['contrastive/loss']:.3f} -> "
+          f"{last['contrastive/loss']:.3f}, cos_pos {first['contrastive/cos_pos']:.3f} -> "
+          f"{last['contrastive/cos_pos']:.3f} (the JAX package's XLA-backend run, first -> "
+          f"last log: loss {jax_ref['loss'][0]} -> {jax_ref['loss'][1]}, cos_pos "
+          f"{jax_ref['cos_pos'][0]} -> {jax_ref['cos_pos'][1]})  [{card}]")
+    check(launches["fwd"] == iterations and launches["bwd"] == iterations,
+          f"C=32 launches {launches} over {iterations} iterations")
+    check(all(math.isfinite(r["contrastive/loss"]) for r in logs), "non-finite logged loss")
+    # One logged row is one view's draw.  Over four seeds on an H100 single
+    # rows ranged from -0.74 to 1.78 in loss and +-0.02 in cos_pos, and the
+    # first log, at iteration 100, is already past the steep part (cos_pos
+    # 0.87-0.94 against 0.13 untrained): a first-log-against-last-log
+    # comparison is a coin toss.  So the loss is held against the untrained
+    # model's, as a median over the logs, and must still fall from the first
+    # five logs to the last five (medians); cos_pos is held to a level, like
+    # PSNR.
+    check(median_loss <= LOSS_RATIO_GATE * untrained["loss"],
+          f"median logged loss {median_loss} is above {LOSS_RATIO_GATE} of the untrained "
+          f"{untrained['loss']}")
+    check(late_loss < early_loss, f"median loss of the last 5 logs {late_loss} is not below "
+          f"that of the first 5 {early_loss}")
+    check(late_cos_pos >= COS_POS_GATE and late_cos_pos > untrained["cos_pos"],
+          f"median cos_pos of the last 5 logs {late_cos_pos} < {COS_POS_GATE} "
+          f"(untrained {untrained['cos_pos']})")
+    out = os.path.join(model_dir, "point_cloud", f"iteration_{iterations}")
+    for name in ("contrastive_feature_point_cloud.ply", "scale_gate.pt"):
+        check(os.path.exists(os.path.join(out, name)), f"{name} not written")
+
+    check(render.main(common + ["--target", "contrastive_feature", "--raster_capacity",
+                                "32768"]) == 0, "cli/render.py --target contrastive_feature failed")
+    (ours,) = os.listdir(os.path.join(model_dir, "contrastive_feature"))
+    renders = os.path.join(model_dir, "contrastive_feature", ours, "train", "renders")
+    maps = sorted(os.listdir(renders))
+    check(len(maps) == 48, f"{len(maps)} feature maps for 48 views")
+    for name in maps:
+        fmap = np.load(os.path.join(renders, name))
+        check(fmap.shape == (150, 200, 32), f"{name}: shape {fmap.shape}")
+        check(bool(np.isfinite(fmap).all()) and float(fmap.std()) > 1e-3, f"{name} is constant")
+    print(f"phase 9: cli/render.py --target contrastive_feature wrote {len(maps)} maps of "
+          f"shape (150, 200, 32)")
+    return launches, depth_entry
 
 
 def build_kernels() -> None:
@@ -894,13 +1453,15 @@ def build_kernels() -> None:
     from concurrent.futures import ThreadPoolExecutor
 
     from seganygaussians_torch.ops.blend_cuda import BACKWARD, FORWARD
+    from seganygaussians_torch.tools.bench_scan_variants import SCAN
 
+    kernels = (FORWARD, BACKWARD, SCAN)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        for future in [pool.submit(k.library) for k in (FORWARD, BACKWARD)]:
+    with ThreadPoolExecutor(len(kernels)) as pool:
+        for future in [pool.submit(k.library) for k in kernels]:
             future.result()
     print(f"kernel builds (in parallel) + load: {time.perf_counter() - t0:.1f} s")
-    for kernel in (FORWARD, BACKWARD):
+    for kernel in kernels:
         for ln in kernel.build_log.splitlines():
             if "registers" in ln or "spill" in ln:
                 print(f"ptxas [{kernel.name}]:", ln.strip())
@@ -931,10 +1492,26 @@ def main() -> int:
     for entry, c in zip(bwd_entries, (3, 32)):
         entry["launches"] = launches[c]
     entries += bwd_entries
-    phase_train_cli(device, card)
-    worst = max(err_full, *small_errors.values())
+    model_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        phase_train_cli(device, card, model_dir)
+        scan_entries, err_scan = phase_scan(device, card)
+        step_launches = phase_contrastive(device, card, scene, capacity)
+        del scene
+        cli_launches, depth_entry = phase_contrastive_cli(device, card, model_dir)
+    finally:
+        shutil.rmtree(model_dir, ignore_errors=True)
+    # The C = 32 kernels' launches on this slice's paths, beside phase 2's and 5's.
+    for entry in entries:
+        if entry["name"].endswith("[C=32]"):
+            side = "fwd" if entry["name"].startswith("blend_fwd") else "bwd"
+            entry["launches_contrastive_step"] = step_launches[side]
+            entry["launches_contrastive_cli"] = cli_launches[side]
+    entries.append(depth_entry)
+    entries += scan_entries
+    worst = max(err_full, depth_entry["max_abs_err"], *small_errors.values())
     print(f"max |kernel - plain| over all comparisons: forward {worst:.3g}, "
-          f"backward {err_bwd:.3g}")
+          f"backward {err_bwd:.3g}; scan variants {err_scan:.3g} relative")
     print(f"whole run {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": entries}))

@@ -17,7 +17,6 @@ from __future__ import annotations
 import os
 import sys
 
-import torch
 
 
 def main(argv=None):
@@ -25,6 +24,7 @@ def main(argv=None):
     from seganygaussians_torch.config import (
         PipelineConfig, TrainHyper, add_group, extract, make_parser, save_cfg,
     )
+    from seganygaussians_torch.cli.render import select_device
     from seganygaussians_torch.models import gaussians as gm
     from seganygaussians_torch.ops.rasterize import RasterConfig
     from seganygaussians_torch.scene import ModelConfig, Scene
@@ -46,13 +46,7 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
 
-    device = torch.device(args.device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("--device cuda asked for, but no CUDA device is available")
-        # Full fp32 for any matmul or convolution on the card.
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    device = select_device(args.device)
 
     cfg = extract(ModelConfig, args)
     hyper = extract(TrainHyper, args)

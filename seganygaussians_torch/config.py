@@ -1,11 +1,12 @@
 """Reflection-based CLI flag groups + persisted config.
 
-Counterpart of ``seganygaussians_tpu/config.py`` without the contrastive
-group (it comes with the contrastive slice).  ``add_group`` turns dataclass
-fields into argparse flags (bools become store_true); the groups are
-``ModelConfig`` and ``PipelineConfig`` (``make_parser``) and ``TrainHyper``,
-which the trainer CLI adds.  Configs persist as JSON (``cfg_args.json``), and the reader also accepts the
-reference's ``Namespace(...)`` repr without ``eval``.
+Counterpart of ``seganygaussians_tpu/config.py``.  ``add_group`` turns
+dataclass fields into argparse flags (bools become store_true); the groups
+are ``ModelConfig`` and ``PipelineConfig`` (``make_parser``), ``TrainHyper``,
+which the trainer CLI adds, and ``ContrastiveHyper``
+(``make_contrastive_parser``).  Configs persist as JSON (``cfg_args.json``),
+and the reader also accepts the reference's ``Namespace(...)`` repr without
+``eval``.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import Any, Optional
 
 from seganygaussians_torch.models.gaussians import TrainHyper  # noqa: F401 (a group)
 from seganygaussians_torch.scene import ModelConfig
+from seganygaussians_torch.train.contrastive_trainer import ContrastiveHyper
 
 _SHORTHANDS = {
     "source_path": "s",
@@ -100,3 +102,10 @@ def make_parser(description: str = "") -> argparse.ArgumentParser:
     add_group(parser, PipelineConfig, "Pipeline Parameters")
     return parser
 
+
+def make_contrastive_parser(description: str = "") -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description=description)
+    add_group(parser, ModelConfig, "Loading Parameters")
+    add_group(parser, PipelineConfig, "Pipeline Parameters")
+    add_group(parser, ContrastiveHyper, "Optimization Parameters")
+    return parser

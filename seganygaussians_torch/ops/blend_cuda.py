@@ -64,23 +64,25 @@ class _CudaKernel:
 
     ``launches`` goes up by one each time the kernel is launched, and nowhere
     else, so a caller can show that a run went through the kernel;
-    ``launches_by_channels`` splits the same count by channel count C.
+    ``launches_by_channels`` splits the same count by the launch's first
+    argument (``count_keys``: the channel count C for the blend kernels).
     """
 
     name = ""  # source stem and C entry point prefix
     argtypes: list = []
+    count_keys: tuple = CHANNELS
 
     def __init__(self):
         self.source = CSRC / f"{self.name}.cu"
         self.launches = 0
-        self.launches_by_channels = dict.fromkeys(CHANNELS, 0)
+        self.launches_by_channels = dict.fromkeys(self.count_keys, 0)
         self.build_log = ""
         self._lib = None
         self._lock = threading.Lock()
 
     def reset_counts(self) -> None:
         self.launches = 0
-        self.launches_by_channels = dict.fromkeys(CHANNELS, 0)
+        self.launches_by_channels = dict.fromkeys(self.count_keys, 0)
 
     @property
     def loaded(self) -> bool:

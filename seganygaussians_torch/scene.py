@@ -1,12 +1,12 @@
-"""Scene orchestrator: cameras + the scene's Gaussians.
+"""Scene orchestrator: cameras + the scene's and the feature Gaussians.
 
-Counterpart of ``seganygaussians_tpu/scene.py`` with ``need_scene=True``:
-resolves which PLY to load from ``(target, load_iteration)``, loads cameras
-with the resolution policy and computes the NeRF++ extent.  Without a saved
-iteration (training from scratch) it builds a fresh model from the point
-cloud, copies the input PLY and writes ``cameras.json``, as the reference
-does; :meth:`Scene.save` writes ``point_cloud/iteration_N/{target}_point_cloud.ply``.
-The feature models come with a later slice and raise.
+Counterpart of ``seganygaussians_tpu/scene.py``: resolves which PLYs to load
+from ``(target, mode, load_iteration)``, loads cameras with the resolution
+policy and computes the NeRF++ extent.  Without a saved iteration (training
+from scratch) it builds a fresh model from the point cloud, copies the input
+PLY and writes ``cameras.json``, as the reference does; :meth:`Scene.save`
+writes ``point_cloud/iteration_N/{target}_point_cloud.ply`` and
+:meth:`Scene.save_feature` the feature PLY.
 """
 
 from __future__ import annotations
@@ -18,9 +18,13 @@ import random
 import shutil
 from typing import Optional
 
+import numpy as np
+import torch
+
 from seganygaussians_torch.data import ply as plyio
 from seganygaussians_torch.data.cameras import Camera, load_camera
 from seganygaussians_torch.data.readers import detect_and_read
+from seganygaussians_torch.models import feature_gaussians as fgm
 from seganygaussians_torch.models import gaussians as gm
 
 
@@ -68,37 +72,58 @@ def _auto_capacity(n: int, requested: int) -> int:
 
 
 class Scene:
-    """Host-side scene: cameras + the scene Gaussians on ``device``."""
+    """Host-side scene: cameras + (optionally) the scene and feature
+    Gaussians on ``device``.
+
+    ``target`` ∈ {scene, seg, feature, coarse_seg_everything,
+    contrastive_feature}, ``mode`` ∈ {train, eval}, the JAX package's matrix.
+    """
 
     def __init__(
         self,
         cfg: ModelConfig,
+        need_scene: bool = True,
+        need_features_model: bool = False,
         load_iteration: Optional[int] = None,
+        feature_load_iteration: Optional[int] = None,
         shuffle: bool = True,
         resolution_scales=(1.0,),
         target: str = "scene",
+        mode: str = "train",
         sample_rate: float = 1.0,
         seed: int = 0,
         device="cuda",
     ):
-        if "feature" in target:
-            raise NotImplementedError(
-                "feature models: contrastive slice of the port (ROADMAP.md Queue 1)"
-            )
         self.cfg = cfg
         self.model_path = cfg.model_path
         self.device = device
         self.loaded_iter: Optional[int] = None
+        self.feature_loaded_iter: Optional[int] = None
         self.gaussians: Optional[gm.GaussianState] = None
+        self.feature_gaussians: Optional[fgm.FeatureState] = None
         pc_dir = os.path.join(self.model_path, "point_cloud")
 
         if load_iteration is not None:
             if load_iteration == -1:
                 self.loaded_iter = search_for_max_iteration(
-                    pc_dir, "seg" if target == "seg" else "scene"
+                    pc_dir, "seg" if (mode == "eval" and target == "seg") else "scene"
                 )
             else:
                 self.loaded_iter = load_iteration
+            if target in ("seg", "coarse_seg_everything") and mode == "train":
+                self.feature_loaded_iter = (
+                    search_for_max_iteration(pc_dir, "feature")
+                    if feature_load_iteration in (None, -1)
+                    else feature_load_iteration
+                )
+            elif mode == "eval" and target in (
+                "feature", "contrastive_feature", "coarse_seg_everything"
+            ):
+                self.feature_loaded_iter = (
+                    search_for_max_iteration(pc_dir, target)
+                    if feature_load_iteration in (None, -1)
+                    else feature_load_iteration
+                )
 
         info = detect_and_read(
             cfg.source_path,
@@ -148,13 +173,63 @@ class Scene:
             self.train_cameras[scale] = load_all(train_infos, scale)
             self.test_cameras[scale] = load_all(test_infos, scale)
 
-        if self.loaded_iter:
-            self.gaussians = self.load_scene_state(self.loaded_iter, target)
-        else:
-            self.gaussians = gm.create_from_points(
-                info.points, info.colors, cfg.sh_degree,
-                _auto_capacity(len(info.points), cfg.capacity), device=device,
+        if need_scene:
+            if self.loaded_iter:
+                name = "scene" if ("feature" in target or target == "coarse_seg_everything"
+                                   or mode == "train") else target
+                self.gaussians = self.load_scene_state(self.loaded_iter, name)
+            else:
+                self.gaussians = gm.create_from_points(
+                    info.points, info.colors, cfg.sh_degree,
+                    _auto_capacity(len(info.points), cfg.capacity), device=device,
+                )
+        if need_features_model:
+            self.feature_gaussians = self._load_feature_state(info, pc_dir, target, mode, seed)
+
+    def _load_feature_state(self, info, pc_dir, target, mode, seed) -> Optional[fgm.FeatureState]:
+        cfg = self.cfg
+
+        def scene_ply():
+            scene_iter = self.loaded_iter or search_for_max_iteration(pc_dir, "scene")
+            return os.path.join(pc_dir, f"iteration_{scene_iter}", "scene_point_cloud.ply")
+
+        if target == "feature" and not self.feature_loaded_iter:
+            # A fresh feature model, seeded either from the trained scene
+            # PLY's xyz (init_from_3dgs_pcd) or from the Colmap point cloud.
+            pts = (plyio.load_gaussians_ply(scene_ply())["xyz"] if cfg.init_from_3dgs_pcd
+                   else info.points)
+            return fgm.from_point_cloud(
+                np.asarray(pts), feature_dim=cfg.feature_dim,
+                capacity=_auto_capacity(len(pts), cfg.capacity), device=self.device,
             )
+        if target in ("contrastive_feature", "coarse_seg_everything") and mode == "train":
+            d = plyio.load_gaussians_ply(scene_ply())
+            return fgm.from_scene_geometry(
+                d["xyz"], d["scaling"], d["rotation"], d["opacity"],
+                feature_dim=cfg.feature_dim, target=target, seed=seed, device=self.device,
+            )
+        if self.feature_loaded_iter:
+            src = os.path.join(
+                pc_dir, f"iteration_{self.feature_loaded_iter}",
+                f"{'feature' if target == 'seg' else target}_point_cloud.ply",
+            )
+            d = plyio.load_feature_gaussians_ply(src)
+
+            def t(a):
+                return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+
+            xyz = t(d["xyz"])
+            return fgm.FeatureState(
+                geom=fgm.FrozenGeometry(
+                    xyz=xyz, scaling=t(d["scaling"]), rotation=t(d["rotation"]),
+                    opacity=t(d["opacity"]),
+                    alive=torch.ones(xyz.shape[0], dtype=torch.bool, device=self.device),
+                ),
+                point_features=t(d["features"]),
+                smooth_map=fgm.build_smooth_map(xyz, 16),
+                opt=None,  # eval-mode load
+            )
+        return None
 
     def _iter_dir(self, iteration: int) -> str:
         return os.path.join(self.model_path, "point_cloud", f"iteration_{iteration}")
@@ -166,6 +241,47 @@ class Scene:
         plyio.save_gaussians_ply(
             path, d["xyz"], d["features_dc"], d["features_rest"],
             d["opacity"], d["scaling"], d["rotation"],
+        )
+        return path
+
+    def save_mask(self, iteration: int, mask: np.ndarray, idx: int = 0) -> str:
+        path = os.path.join(self._iter_dir(iteration), f"seg_point_cloud_{idx}.npy")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        np.save(path, mask)
+        return path
+
+    def save_feature(
+        self, iteration: int, target: str = "contrastive_feature",
+        smooth_type: Optional[str] = "traditional",
+        multi_res_maps: Optional[tuple] = None, seed: int = 0,
+    ) -> str:
+        """Save the feature PLY — with SMOOTHED features when ``smooth_type``
+        is 'traditional' (all K neighbours, no dropout) or 'multi_res'.
+
+        For 'multi_res', pass the trainer's cached ``multi_res_maps`` (or at
+        least its ``seed``), so that the export smooths over the per-level
+        subsamples the features were optimised against."""
+        fs = self.feature_gaussians
+        with torch.no_grad():
+            if smooth_type == "traditional":
+                feats = fgm.smoothed_point_features(fs)
+            elif smooth_type == "multi_res":
+                device = fs.point_features.device
+                maps = multi_res_maps or fgm.build_multi_res_maps(
+                    fs, torch.Generator(device=device).manual_seed(seed)
+                )
+                feats = fgm.multi_res_smoothed_features(fs, maps)
+            else:
+                feats = fs.point_features
+        alive = fs.geom.alive.cpu().numpy()
+
+        def live(x):
+            return x.detach().cpu().numpy()[alive]
+
+        path = os.path.join(self._iter_dir(iteration), f"{target}_point_cloud.ply")
+        plyio.save_feature_gaussians_ply(
+            path, live(fs.geom.xyz), live(feats), live(fs.geom.opacity),
+            live(fs.geom.scaling), live(fs.geom.rotation),
         )
         return path
 

@@ -1,4 +1,4 @@
-"""The Hopper blend kernels on the card, held against their plain versions.
+"""The Hopper kernels on the card, held against their plain versions.
 
 Every test here needs an NVIDIA GPU and ``nvcc`` (the kernels have no CPU or
 interpret mode) and skips without one.  The file imports nothing of JAX, so
@@ -190,3 +190,97 @@ def test_rasterize_gradients_on_card_match_cpu(cuda, c):
     for a, b in zip(grads["cpu"], grads[str(cuda)]):
         scale = a.abs().max() + 1e-6
         torch.testing.assert_close(b.cpu() / scale, a / scale, atol=2e-4, rtol=0)
+
+
+# --------------------------------------------------------------------------
+# The scan micro-benchmark kernel and the contrastive step
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["exp_only", "log_tri", "log_tri_hs", "roll_lane",
+                                     "roll_sub", "seq_march"])
+def test_scan_kernel_matches_plain(cuda, variant):
+    """csrc/scan_variants.cu against scan_variants_plain on the card, 1e-4
+    relative (float32 products in another order; log_tri's plain version
+    rounds to TF32 where the tensor cores do)."""
+    from seganygaussians_torch.tools import bench_scan_variants as tool
+
+    s = tool.seeded_block(cuda)
+    for n_chunk in (3, 200):
+        before = tool.SCAN.launches_of(variant)
+        got = tool.scan_variants(s, variant, n_chunk)
+        torch.cuda.synchronize()
+        assert tool.SCAN.launches_of(variant) == before + 1
+        want = tool.scan_variants_plain(s, variant, n_chunk, tf32=True)
+        rel = ((got - want).abs() / want.abs().clamp_min(1e-30)).max()
+        assert float(rel) <= 1e-4, (variant, n_chunk, float(rel))
+    with pytest.raises(ValueError):
+        tool.SCAN(s[:128].contiguous(), variant, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("smooth_type", ["traditional", "none"])
+def test_contrastive_step_on_card_matches_cpu(cuda, smooth_type):
+    """One contrastive_step with the same draws on the card (both blend
+    kernels at C = 32) and on the CPU (autograd through ops/blend.py): loss
+    and metrics to 1e-5, gradients to 2e-4 of each array's largest value."""
+    from seganygaussians_torch.models import feature_gaussians as fgm
+    from seganygaussians_torch.models import optim
+    from seganygaussians_torch.ops.quantile import fit_quantile_transform
+    from seganygaussians_torch.seg.scale_gate import ScaleGateParams
+    from seganygaussians_torch.train import contrastive_trainer as ct
+
+    rng = np.random.default_rng(5)
+    n, w, h, rays = 300, 64, 48, 64
+    pts = np.concatenate([rng.normal([-0.5, 0, 3.0], 0.2, (n // 2, 3)),
+                          rng.normal([0.5, 0, 3.0], 0.2, (n // 2, 3))]).astype(np.float32)
+    ys, xs = np.mgrid[:h, :w]
+    masks = np.stack([np.ones((h, w), bool), xs < w // 2, xs >= w // 2,
+                      (ys - 24) ** 2 + (xs - 20) ** 2 < 100])
+    scales = np.array([5.0, 1.2, 1.0, 0.4], np.float32)
+    geometry = (pts, np.log(rng.uniform(0.04, 0.1, (n, 3))).astype(np.float32),
+                rng.normal(size=(n, 4)).astype(np.float32),
+                rng.normal(1.0, 1.0, (n, 1)).astype(np.float32))
+    gate_w = torch.tensor(rng.uniform(-1, 1, (1, 32)), dtype=torch.float32)
+    gate_b = torch.tensor(rng.uniform(-1, 1, 32), dtype=torch.float32)
+    camera = make_camera(np.eye(3), np.zeros(3), fovx=1.1, fovy=0.9, width=w, height=h)
+    hyper = ct.ContrastiveHyper(num_sampled_rays=rays, smooth_k=8, smooth_type=smooth_type,
+                                debug_grads=True)
+    cpu_state = fgm.from_scene_geometry(*geometry, capacity=320, smooth_k=8, device="cpu")
+    cpu_bundle = ct.build_mask_bundle(masks, scales, 5, device="cpu")
+    draws = ct.draw_step(torch.Generator().manual_seed(3), cpu_bundle, hyper, 8)
+
+    def to(tree, dev):
+        if isinstance(tree, torch.Tensor):
+            return tree.to(dev)
+        if isinstance(tree, tuple):
+            vals = [to(x, dev) for x in tree]
+            return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
+        return tree
+
+    results = {}
+    for dev in ("cpu", cuda):
+        state = to(cpu_state, dev)
+        gate = ScaleGateParams(gate_w.to(dev), gate_b.to(dev))
+        consts = ct.ContrastiveConsts(
+            upper_bound_scale=torch.tensor(5.0, device=dev),
+            qt=fit_quantile_transform(torch.tensor(scales, device=dev)))
+        fwd = blend_cuda.FORWARD.launches_by_channels[32]
+        bwd = blend_cuda.BACKWARD.launches_by_channels[32]
+        _, _, _, aux = ct.contrastive_step(
+            state, gate, optim.adam_init(gate), camera, to(cpu_bundle, dev), consts, hyper,
+            RasterConfig(capacity=1 << 13), draws=to(draws, dev))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert blend_cuda.FORWARD.launches_by_channels[32] == fwd + 1
+            assert blend_cuda.BACKWARD.launches_by_channels[32] == bwd + 1
+        results[str(dev)] = aux
+    a, b = results["cpu"], results[str(cuda)]
+    for name in ("loss", "rfn", "cosine_pos", "cosine_neg"):
+        assert abs(float(a[name]) - float(b[name])) <= 1e-5, name
+    for ga, gb in ((a["feat_grads"], b["feat_grads"]), (a["gate_grads"].w, b["gate_grads"].w),
+                   (a["gate_grads"].b, b["gate_grads"].b)):
+        scale = ga.abs().max()
+        assert float(scale) > 0
+        assert float((gb.cpu() - ga).abs().max()) <= 2e-4 * float(scale)

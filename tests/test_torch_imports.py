@@ -28,6 +28,11 @@ def test_port_imports_no_jax():
     assert "seganygaussians_torch.cli.render" in names
     assert "seganygaussians_torch.train.scene_trainer" in names
     assert "seganygaussians_torch.cli.train_scene" in names
+    for module in ("ops.quantile", "seg.scale_gate", "models.feature_gaussians", "preprocess",
+                   "train.contrastive_trainer", "cli.get_scale",
+                   "cli.train_contrastive_feature", "tools.bench_scan_variants",
+                   "utils.precision"):
+        assert f"seganygaussians_torch.{module}" in names, module
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = os.path.abspath(ROOT)
     proc = subprocess.run(
@@ -35,7 +40,7 @@ def test_port_imports_no_jax():
         capture_output=True, text=True, env=env, cwd=ROOT, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) == len(names) >= 25
+    assert int(proc.stdout.strip()) == len(names) >= 36
 
 
 def test_chip_smoke_imports_no_jax():
