@@ -8,8 +8,12 @@ Builds the forward-blend, backward-blend and scan-variants kernels from
 nine phases, each of which raises on failure:
 
 1. Kernel against its plain version (``ops/blend.py``) on the same CUDA
-   inputs: ~2000 Gaussians at 256×192, C ∈ {3, 4, 5, 32}.  Tolerances are those
-   the Pallas kernel is held to: color 1e-4, final_t 5e-5, n_contrib exact.
+   inputs: ~2000 Gaussians at 256×192, C ∈ {3, 4, 5, 32}, then, at C = 3 and
+   C = 32, seeded strips of tiles whose ranges sit on the kernel's inner
+   edges (0..200 instances around its groups of 4, sub-chunks of 8 and
+   batches of 64; thin and opaque; 16×16 tiles and one strip each of 8×8
+   tiles).  Tolerances are those the Pallas kernel is held to: color 1e-4,
+   final_t 5e-5, n_contrib exact.
 2. Full size: a seeded synthetic scene at the size of a trained Mip-NeRF 360
    scene (3,000,000 Gaussians, SH degree 3, 1297×840 views).  RGB through
    ``render.render`` over 8 orbit cameras and 32-dim features through
@@ -20,9 +24,9 @@ nine phases, each of which raises on failure:
    20,000-Gaussian PLY: one non-constant PNG per camera.
 4. The backward kernel against its plain version
    (``blend_cuda.blend_backward_plain``, autograd through ``ops/blend.py``):
-   phase 1's whole frames at C ∈ {3, 4, 5, 32}, then 64 seeded tiles of phase
-   2's full-size frames at C = 3 and C = 32, with seeded ``g_tiles`` and a
-   nonzero ``g_final_t``.  ``d_table`` and ``d_bg`` within 2e-4 of each
+   phase 1's whole frames at C ∈ {3, 4, 5, 32} and its edge strips, then 64
+   seeded tiles of phase 2's full-size frames at C = 3 and C = 32, with
+   seeded ``g_tiles`` and a nonzero ``g_final_t``.  ``d_table`` and ``d_bg`` within 2e-4 of each
    column's largest absolute value (the JAX package's Pallas-vs-XLA gradient
    bound).  Kernel time at the full frame, bound, plain time on the subset.
 5. ``train_step`` at full width: phase 2's 3M-Gaussian SH-degree-3 scene with
@@ -112,7 +116,8 @@ CONTRASTIVE_E2E_FLAGS = ["--iterations", "1500", "--num_sampled_rays", "512",
 JAX_CONTRASTIVE_TRAJECTORY = {"loss": (0.584, 0.113), "cos_pos": (0.882, 0.957)}
 COS_POS_GATE = 0.90  # the JAX run ended at 0.957; the port's seeds at 0.95-0.97
 # Median logged loss over the untrained model's: nine runs and seeds on an
-# H100 gave 0.20-0.37 (medians 0.31-0.59 against 1.54-1.80).
+# NVIDIA H100 80GB HBM3 (700 W limit) gave 0.20-0.37 (medians 0.31-0.59
+# against 1.54-1.80).
 LOSS_RATIO_GATE = 0.45
 
 
@@ -243,6 +248,49 @@ def subset(d, tiles):
     return d["gauss_s"][idx].contiguous(), d["tile_s"][idx], sub_starts
 
 
+# Range lengths around the kernels' inner edges: the 4-instance groups, the
+# 8-instance sub-chunks of the backward and the 64-row batches, with empty
+# tiles between them.
+EDGE_LENGTHS = (0, 1, 3, 4, 5, 7, 8, 9, 0, 63, 64, 65, 127, 128, 129, 0, 200)
+# The strips this script runs, as (C, opaque, tile size): both widths the
+# main paths use, and the 8×8 tiles (two warps a block) that no path here
+# takes.  tests/test_torch_cuda.py runs every C.
+EDGE_STRIPS = ((3, False, 16), (3, True, 16), (32, False, 16), (32, True, 16),
+               (3, True, 8), (32, False, 8))
+
+
+def edge_case_frame(c, seed, device, lengths=EDGE_LENGTHS, opaque=False, tile_size=16):
+    """A seeded one-row strip of square tiles whose instance ranges have the
+    given lengths, in ``blend_inputs``' layout.  Wide Gaussians scattered over
+    the strip, so every range mixes skipped and included instances; with
+    ``opaque`` the opacities are high and pixels saturate after a few
+    included instances, at different places of a range.  ``gauss_s`` ends
+    with padding ranks (= N) past the last range, as ``sort_instances``
+    leaves them."""
+    rng = np.random.default_rng(seed)
+    n, num_tiles = 256, len(lengths)
+    sx, sy = rng.uniform(6, 50, n), rng.uniform(6, 50, n)
+    rho = rng.uniform(-0.6, 0.6, n)
+    det = 1.0 - rho * rho
+    cols = [rng.uniform(-8, tile_size * num_tiles + 8, n), rng.uniform(-8, tile_size + 8, n),
+            1 / (sx * sx * det), -rho / (sx * sy * det), 1 / (sy * sy * det),
+            rng.uniform(0.5, 0.99, n) if opaque else rng.uniform(0.01, 0.12, n)]
+    table = np.concatenate([np.stack(cols, 1), rng.uniform(size=(n, c))], 1).astype(np.float32)
+    ranks = [np.sort(rng.choice(n, length, replace=False)) for length in lengths]
+    gauss_s = np.concatenate(ranks + [np.full(5, n)]).astype(np.int64)
+    tile_s = np.repeat(np.arange(num_tiles), lengths).astype(np.int64)
+    starts = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    table = torch.from_numpy(table).to(device)
+    return dict(
+        gauss_s=torch.from_numpy(gauss_s).to(device), tile_s=torch.from_numpy(tile_s).to(device),
+        tile_starts=torch.from_numpy(starts).to(device), table=table,
+        means2d=table[:, 0:2].contiguous(), conics=table[:, 2:5].contiguous(),
+        opacities=table[:, 5].contiguous(), colors=table[:, 6:].contiguous(),
+        bg=torch.linspace(0.1, 0.9, c, device=device), grid=(num_tiles, 1, tile_size),
+        num_instances=int(starts[-1]),
+    )
+
+
 def compare(kernel_out, plain_out, rows=None) -> float:
     """Raise unless the kernel agrees with the plain version; return the
     largest absolute color/final_t difference."""
@@ -260,13 +308,16 @@ def compare(kernel_out, plain_out, rows=None) -> float:
     return max(err_c, err_t)
 
 
-def work_counts(d, n_contrib) -> tuple[int, int]:
-    """(visited, included) (instance, pixel) pairs of this frame.
+def work_counts(d, n_contrib) -> tuple[int, int, dict]:
+    """(visited, included) (instance, pixel) pairs of this frame, and how far
+    its tiles are walked.
 
     A pixel must evaluate each instance of its tile up to the one that ends
     its march: instance j is visited while the product of (1 − α) over the
     contributing instances before it is ≥ 1e-4.  Counted exactly, chunk by
-    chunk of whole tiles."""
+    chunk of whole tiles.  A tile is walked as far as the pixel that visits
+    the most: the third value holds that length's mean, quantiles and largest
+    value over the tiles, beside the range lengths'."""
     from seganygaussians_torch.ops import blend as blend_torch
 
     starts = d["tile_starts"].long().cpu().tolist()
@@ -275,6 +326,7 @@ def work_counts(d, n_contrib) -> tuple[int, int]:
     grid_x, _, ts = d["grid"]
     n = d["table"].shape[0]
     visited, t0 = 0, 0
+    walked = torch.zeros(num_tiles, device=starts_dev.device)
     log_eps = math.log(blend_torch.T_EPS)
     while t0 < num_tiles:
         t1 = t0 + 1
@@ -292,9 +344,23 @@ def work_counts(d, n_contrib) -> tuple[int, int]:
             seg0 = starts_dev[tile] - s  # first row of each tile
             base = torch.where((seg0 > 0)[:, None], cum[(seg0 - 1).clamp_min(0)],
                                torch.zeros_like(cum[:1]))
-            visited += int(((cum - log1m - base) >= log_eps).sum())
+            seen = (cum - log1m - base) >= log_eps
+            visited += int(seen.sum())
+            per_pixel = torch.zeros((t1 - t0, seen.shape[1]), device=seen.device)
+            walked[t0:t1] = per_pixel.index_add_(0, tile - t0, seen.float()).amax(dim=1)
         t0 = t1
-    return visited, int(n_contrib.sum())
+    length = (starts_dev[1:] - starts_dev[:-1]).float()
+    q = torch.tensor([0.5, 0.9, 0.99], device=length.device)
+    busy = length > 0
+    walk = {
+        "tiles": num_tiles, "busy_share": float(busy.float().mean()),
+        "range_mean": float(length.mean()), "range_quantiles": torch.quantile(length, q).tolist(),
+        "walked_mean": float(walked.mean()),
+        "walked_mean_busy": float(walked[busy].mean()) if bool(busy.any()) else 0.0,
+        "walked_quantiles": torch.quantile(walked, q).tolist(), "walked_max": float(walked.max()),
+        "pixel_visited_mean": visited / (num_tiles * ts * ts),
+    }
+    return visited, int(n_contrib.sum()), walk
 
 
 def bound(d, visited, included):
@@ -393,7 +459,21 @@ def phase_small(device) -> dict[int, float]:
               f"{int(out[2].max())}, max |kernel - plain| {err:.3g}")
         check(int(out[2].max()) > 10, "small scene too thin to test the march")
         frames[c] = d
-    return errors, frames
+    edge_frames = {}
+    for c, opaque, ts in EDGE_STRIPS:
+        d = edge_case_frame(c, 50 + c, device, opaque=opaque, tile_size=ts)
+        out = run_kernel(d)
+        plain = run_plain(d, d["gauss_s"][: d["num_instances"]], d["tile_s"], d["tile_starts"])
+        torch.cuda.synchronize()
+        err = compare(out, plain)
+        errors[c] = max(errors[c], err)
+        check(int(out[2].max()) > 10, "edge strip too thin to test the march")
+        check(not opaque or float(out[1].min()) < 2e-4, "no pixel of the opaque strip saturated")
+        edge_frames[(c, opaque, ts)] = d
+    print(f"phase 1: edge strips (ranges of {sorted(set(EDGE_LENGTHS))} instances; C, opaque, "
+          f"tile size: {list(EDGE_STRIPS)}): max |kernel - plain| {json.dumps({c: float(f'{e:.3g}') for c, e in errors.items()})} "
+          f"with the whole frames, n_contrib exact")
+    return errors, frames, edge_frames
 
 
 def phase_full(device, card, small_errors):
@@ -493,14 +573,27 @@ def phase_full(device, card, small_errors):
             torch.cuda.synchronize()
             err = compare(out, plain, rows=tiles.to(device))
             worst = max(worst, err)
-            plain_ms = float(np.median(cuda_time_ms(lambda: run_plain(d, *sub), warmup=1, iters=3)))
+            # The comparison above was the plain version's warm-up.
+            plain_ms = float(np.median(cuda_time_ms(lambda: run_plain(d, *sub), warmup=0, iters=3)))
             sub_d = dict(d, gauss_s=sub[0], tile_starts=sub[2])
             sub_kernel_ms = float(np.median(cuda_time_ms(lambda: run_kernel(sub_d), warmup=1, iters=5)))
-            visited, included = work_counts(d, out[2])
+            # Both frames have the same geometry, so the same pairs are
+            # visited: counted once, chunk by chunk over the whole frame.
+            if frames:
+                check(torch.equal(d["tile_starts"], frames[3][0]["tile_starts"]),
+                      "the C=32 frame's tile ranges differ from the C=3 frame's")
+                visited, included = frames[3][2], int(out[2].sum())
+                check(included == frames[3][3], "the two frames include different pairs")
+            else:
+                visited, included, walk = work_counts(d, out[2])
+                print(f"phase 2: per tile (quantiles at 0.5 / 0.9 / 0.99), instances in range "
+                      f"and instances walked before every pixel has saturated: "
+                      f"{json.dumps(walk)}")
             frames[c] = (d, tiles, visited, included)
             bound_ms, bound_by, nbytes, ops = bound(d, visited, included)
             print(f"phase 2: {name}: {d['num_instances']} instances, kernel {kernel_ms:.3f} ms "
-                  f"(full frame), bound {bound_ms:.4f} ms by {bound_by} ({nbytes} B, {ops} ops; "
+                  f"(full frame), bound {bound_ms:.4f} ms by {bound_by} = "
+                  f"{bound_ms / kernel_ms:.1%} of the kernel's time ({nbytes} B, {ops} ops; "
                   f"{visited} visited / {included} included pairs); 64-tile subset: kernel "
                   f"{sub_kernel_ms:.3f} ms, plain {plain_ms:.3f} ms (no yardstick of speed); "
                   f"max |kernel - plain| {err:.3g}  [{card}]")
@@ -515,6 +608,7 @@ def phase_full(device, card, small_errors):
                 "plain_ms": plain_ms,
                 "bound_ms": bound_ms,
                 "bound_by": bound_by,
+                "share_of_bound": bound_ms / kernel_ms,
                 "library_ms": None,
             })
     return entries, worst, frames, s, capacity
@@ -629,9 +723,9 @@ def bound_backward(d, visited, included):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), bytes_moved, ops
 
 
-def phase_backward(card, small_frames, full_frames) -> tuple[list, float]:
-    """Backward kernel vs plain version: whole small frames, then 64 tiles of
-    the full-size frames."""
+def phase_backward(card, small_frames, edge_frames, full_frames) -> tuple[list, float]:
+    """Backward kernel vs plain version: whole small frames, the edge strips,
+    then 64 tiles of the full-size frames."""
     from seganygaussians_torch.ops.blend_cuda import BACKWARD, FORWARD
 
     worst, small_err = 0.0, {}
@@ -644,6 +738,23 @@ def phase_backward(card, small_frames, full_frames) -> tuple[list, float]:
         check(float(want[0][:, :6].abs().amax(dim=0).min()) > 0, "a geometry column is zero")
         print(f"phase 4: C={c} whole 256x192 frame: max |kernel - plain| {small_err[c]:.3g}")
         worst = max(worst, small_err[c])
+    for (c, _, _), d in edge_frames.items():
+        g_tiles, g_final_t = grad_inputs(d, 300 + c)
+        got = run_backward(d, d["gauss_s"], d["tile_starts"], g_tiles, g_final_t)
+        want = run_backward_plain(d, d["gauss_s"], d["tile_starts"], g_tiles, g_final_t)
+        torch.cuda.synchronize()
+        small_err[c] = max(small_err[c], compare_grads(got, want))
+        # Both marches include the same pairs: under an all-ones color
+        # cotangent a Gaussian's color gradient is its summed weight.
+        ones = torch.ones_like(g_tiles)
+        got = run_backward(d, d["gauss_s"], d["tile_starts"], ones, None)
+        want = run_backward_plain(d, d["gauss_s"], d["tile_starts"], ones, None)
+        torch.cuda.synchronize()
+        check(bool(torch.equal(got[0][:, 6:] != 0, want[0][:, 6:] != 0)),
+              f"C={c} edge strip: the backward kernel includes other pairs than the forward")
+        worst = max(worst, small_err[c])
+    print(f"phase 4: edge strips (the {len(edge_frames)} of phase 1): within {TOL_GRAD} of each "
+          f"column's max; color gradients nonzero for exactly the Gaussians the plain march included")
 
     entries = []
     for c, (d, tiles, visited, included) in sorted(full_frames.items()):
@@ -659,9 +770,9 @@ def phase_backward(card, small_frames, full_frames) -> tuple[list, float]:
         torch.cuda.synchronize()
         err = compare_grads(got, want)
         worst = max(worst, err)
-        plain_ms = float(np.median(cuda_time_ms(
+        plain_ms = float(np.median(cuda_time_ms(  # warmed up by the comparison above
             lambda: run_backward_plain(d, sub[0], sub[2], g_tiles, g_final_t),
-            warmup=1, iters=3)))
+            warmup=0, iters=3)))
         # The kernel alone at the full frame, on the forward's residuals.
         res = FORWARD(d["gauss_s"], d["tile_starts"], d["table"], d["bg"], grid_x, ts)
         args = (d["gauss_s"], d["tile_starts"], d["table"], d["bg"], g_tiles, g_final_t,
@@ -669,7 +780,8 @@ def phase_backward(card, small_frames, full_frames) -> tuple[list, float]:
         kernel_ms = float(np.median(cuda_time_ms(lambda: BACKWARD(*args), warmup=2, iters=10)))
         bound_ms, bound_by, nbytes, ops = bound_backward(d, visited, included)
         print(f"phase 4: blend_bwd[C={c}]: {d['num_instances']} instances, kernel "
-              f"{kernel_ms:.3f} ms (full frame), bound {bound_ms:.4f} ms by {bound_by} "
+              f"{kernel_ms:.3f} ms (full frame), bound {bound_ms:.4f} ms by {bound_by} = "
+              f"{bound_ms / kernel_ms:.1%} of the kernel's time "
               f"({nbytes} B, {ops} ops; {visited} visited / {included} included pairs); "
               f"64-tile subset: plain {plain_ms:.3f} ms (no yardstick of speed); "
               f"max |kernel - plain| {err:.3g}  [{card}]")
@@ -684,6 +796,7 @@ def phase_backward(card, small_frames, full_frames) -> tuple[list, float]:
             "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": bound_by,
+            "share_of_bound": bound_ms / kernel_ms,
             "library_ms": None,
         })
     return entries, worst
@@ -1315,12 +1428,13 @@ def depth_frame_entry(device, card, src, model_dir, capacity, launches) -> dict:
         kernel_ms = float(np.median(cuda_time_ms(lambda: run_kernel(d), warmup=2, iters=10)))
         plain_ms = float(np.median(cuda_time_ms(
             lambda: run_plain(d, d["gauss_s"], d["tile_s"], d["tile_starts"]), warmup=1, iters=3)))
-        visited, included = work_counts(d, out[2])
+        visited, included, _ = work_counts(d, out[2])
         bound_ms, bound_by, nbytes, ops = bound(d, visited, included)
     print(f"phase 9: blend_fwd[C=5] on a get_scale frame ({cam.width}x{cam.height}, "
           f"{p.xyz.shape[0]} Gaussians, {d['num_instances']} instances, largest depth "
           f"{float(plain.tiles[..., 3].max()):.3f}): kernel {kernel_ms:.4f} ms, bound "
-          f"{bound_ms:.5f} ms by {bound_by} ({nbytes} B, {ops} ops), plain {plain_ms:.3f} ms "
+          f"{bound_ms:.5f} ms by {bound_by} = {bound_ms / kernel_ms:.1%} of the kernel's time "
+          f"({nbytes} B, {ops} ops), plain {plain_ms:.3f} ms "
           f"(whole frame; no yardstick of speed); max |kernel - plain| {err:.3g}, n_contrib "
           f"exact  [{card}]")
     return {
@@ -1334,6 +1448,7 @@ def depth_frame_entry(device, card, src, model_dir, capacity, launches) -> dict:
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "share_of_bound": bound_ms / kernel_ms,
         "library_ms": None,
     }
 
@@ -1413,8 +1528,8 @@ def phase_contrastive_cli(device, card, model_dir) -> tuple[dict[str, int], dict
     check(launches["fwd"] == iterations and launches["bwd"] == iterations,
           f"C=32 launches {launches} over {iterations} iterations")
     check(all(math.isfinite(r["contrastive/loss"]) for r in logs), "non-finite logged loss")
-    # One logged row is one view's draw.  Over four seeds on an H100 single
-    # rows ranged from -0.74 to 1.78 in loss and +-0.02 in cos_pos, and the
+    # One logged row is one view's draw.  Over four seeds on an H100 (80GB
+    # HBM3, 700 W limit) single rows ranged from -0.74 to 1.78 in loss and +-0.02 in cos_pos, and the
     # first log, at iteration 100, is already past the steep part (cos_pos
     # 0.87-0.94 against 0.13 untrained): a first-log-against-last-log
     # comparison is a coin toss.  So the loss is held against the untrained
@@ -1483,22 +1598,33 @@ def main() -> int:
     t_start = time.perf_counter()
     build_kernels()
 
-    small_errors, small_frames = phase_small(device)
-    entries, err_full, full_frames, scene, capacity = phase_full(device, card, small_errors)
-    phase_cli(device)
-    bwd_entries, err_bwd = phase_backward(card, small_frames, full_frames)
-    del small_frames, full_frames
-    launches = phase_train(device, card, scene, capacity)
+    def timed(name, fn, *args):
+        """Run one phase and print the wall time it took."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        print(f"{name} took {time.perf_counter() - t0:.1f} s")
+        return out
+
+    small_errors, small_frames, edge_frames = timed("phase 1", phase_small, device)
+    entries, err_full, full_frames, scene, capacity = timed(
+        "phase 2", phase_full, device, card, small_errors)
+    timed("phase 3", phase_cli, device)
+    bwd_entries, err_bwd = timed("phase 4", phase_backward, card, small_frames, edge_frames,
+                                 full_frames)
+    del small_frames, edge_frames, full_frames
+    launches = timed("phase 5", phase_train, device, card, scene, capacity)
     for entry, c in zip(bwd_entries, (3, 32)):
         entry["launches"] = launches[c]
     entries += bwd_entries
     model_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
-        phase_train_cli(device, card, model_dir)
-        scan_entries, err_scan = phase_scan(device, card)
-        step_launches = phase_contrastive(device, card, scene, capacity)
+        timed("phase 6", phase_train_cli, device, card, model_dir)
+        scan_entries, err_scan = timed("phase 7", phase_scan, device, card)
+        step_launches = timed("phase 8", phase_contrastive, device, card, scene, capacity)
         del scene
-        cli_launches, depth_entry = phase_contrastive_cli(device, card, model_dir)
+        cli_launches, depth_entry = timed("phase 9", phase_contrastive_cli, device, card,
+                                          model_dir)
     finally:
         shutil.rmtree(model_dir, ignore_errors=True)
     # The C = 32 kernels' launches on this slice's paths, beside phase 2's and 5's.

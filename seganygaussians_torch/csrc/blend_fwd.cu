@@ -5,40 +5,53 @@
 // a front-to-back alpha composite over the tile's depth-sorted instance range
 // [tile_starts[t], tile_starts[t+1]).
 //
-// Design.  One thread block per tile, one thread per tile pixel (256 threads
-// for 16x16 tiles).  Pixels outside the image are computed too, so the
-// (T, P, C) output matches ops/blend.py before cropping.  The block walks its
-// instance range in batches of BATCH instances: the threads gather each
-// instance's row (x, y, conic a/b/c, opacity, C colors) from the depth-ranked
-// per-Gaussian table into shared memory (C = 32: 38 floats x 256 = 38.9 KB),
-// then every pixel marches the batch in order.  All pixels read the same
-// instance at the same time, so the shared-memory reads are broadcasts.  The
-// block stops once every pixel has saturated (__syncthreads_count).
+// What bounds it on this card.  It reads the instance list (one int64 depth
+// rank per instance plus its (6 + C)-float table row, M x 8 + N x (6 + C) x 4
+// bytes) and writes T x P x (C + 2) x 4 bytes; those bytes set its least
+// time.  What held the first version (256-row batches gathered between two
+// barriers, every pixel marching every instance one dependent step after the
+// other) above that, measured on a 3M-Gaussian 1297x840 frame (NVIDIA H100
+// 80GB HBM3, 700 W limit): the march.  Nearly half of such a frame's tiles
+// are busy and walk some 410 instances each (the longest 2,463); the gather
+// was a tenth of the time at C = 3, and the march took as long at C = 3 as at
+// C = 32, so it was bound by the operations and the latency of a step, not
+// by the color sums.  At C = 32 a second cost was each pixel writing its 32
+// colors 128 bytes apart.
 //
-// What bounds it on this card.  It reads the instance list (one int32 rank
-// per instance plus its (6 + C)-float table row, M x (6 + C) x 4 bytes) and
-// writes T x P x (C + 2) x 4 bytes.  Its work is one expf and ~15 flops for
-// each (instance, pixel) pair visited before the tile saturates, plus 2·C
-// flops for each included pair.  At full-scene sizes the work term is the
-// larger one: the march is a sequential, data-dependent loop, and the kernel
-// is bound by fp32 issue rate and by how many pixels of a block stay active.
+// Design.  The skeleton of blend_common.cuh: one block per tile, one thread
+// per pixel, a warp on a block of 8 x 4 pixels; batches of 64 rows streamed
+// through shared memory by cp.async while the previous batch is marched, one
+// barrier a batch; each warp marches only the instances that can touch its
+// pixels (about half of a tile's), four at a time in two stages: their four
+// α without a branch, then the chain through T, inclusion and the color sum.
+// Pixels outside the image are computed too, so the (T, P, C) output matches
+// ops/blend.py before cropping.  At C > 8 the colors go out through shared
+// memory, so that a warp writes whole 128-byte lines.
 //
-// Numerics.  IEEE fp32 throughout, expf (not __expf), and the build uses
-// --fmad=false, because n_contrib is compared exactly and the 1/255 and 1e-4
-// thresholds sit on the exponential.  Pixel centers are integer coordinates.
+// Numerics.  IEEE fp32, expf (not __expf) and --fmad=false for α and T,
+// because n_contrib is compared exactly and the 1/255 and 1e-4 thresholds sit
+// on the exponential; the color sum alone uses fmaf.  Pixel centers are
+// integer coordinates.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "blend_common.cuh"
 
 namespace {
 
-constexpr int BATCH = 256;
-constexpr float T_EPS = 1e-4f;
-constexpr float ALPHA_MIN = 1.0f / 255.0f;
-constexpr float ALPHA_MAX = 0.99f;
+using namespace blend;
 
 template <int C>
-__global__ void blend_fwd_kernel(
+struct FwdSmem {
+  using Pipe = Pipeline<C, 2>;
+  static constexpr int STAGE_STRIDE = C + 1;  // odd: a warp's pixels hit 32 banks
+  static size_t bytes(int P) {
+    const size_t stream = Pipe::RING_BYTES + Pipe::ROWS_BYTES;
+    const size_t stage = C > 8 ? size_t(P) * STAGE_STRIDE * sizeof(float) : 0;
+    return stream > stage ? stream : stage;
+  }
+};
+
+template <int C>
+__global__ void __launch_bounds__(MAX_THREADS) blend_fwd_kernel(
     const int64_t* __restrict__ gauss_s,   // (M,) depth rank per sorted instance
     const int* __restrict__ tile_starts,   // (T + 1,)
     const float* __restrict__ table,       // (N, 6 + C) depth-ranked rows
@@ -47,9 +60,9 @@ __global__ void blend_fwd_kernel(
     float* __restrict__ final_t,           // (T, P)
     int* __restrict__ n_contrib,           // (T, P)
     int grid_x, int tile_size) {
-  constexpr int F = 6 + C;
-  __shared__ float s_rows[BATCH * F];
-  __shared__ int64_t s_gid[BATCH];
+  using R = Row<C>;
+  using Pipe = Pipeline<C, 2>;
+  extern __shared__ __align__(16) unsigned char smem[];
 
   const int t = blockIdx.x;
   const int p = threadIdx.x;
@@ -57,57 +70,86 @@ __global__ void blend_fwd_kernel(
   const int start = tile_starts[t];
   const int end = tile_starts[t + 1];
 
-  const float px = (float)((t % grid_x) * tile_size + p % tile_size);
-  const float py = (float)((t / grid_x) * tile_size + p / tile_size);
+  const int lane = p & 31;
+  const int pixel = pixel_of(p, tile_size);
+  const float tile_x0 = (float)((t % grid_x) * tile_size);
+  const float tile_y0 = (float)((t / grid_x) * tile_size);
+  const float px = tile_x0 + (float)(pixel % tile_size);
+  const float py = tile_y0 + (float)(pixel / tile_size);
+  const Box box = warp_box(p, tile_size, tile_x0, tile_y0);
 
   float T = 1.0f;
   int count = 0;
   float acc[C];
 #pragma unroll
   for (int k = 0; k < C; ++k) acc[k] = 0.0f;
-  int done = 0;
+  bool done = false;
 
-  for (int b0 = start; b0 < end; b0 += BATCH) {
-    // Also the barrier that keeps this batch's loads behind the last march.
-    if (__syncthreads_count(done) == P) break;
-    const int nb = min(BATCH, end - b0);
-    for (int j = p; j < nb; j += P) s_gid[j] = gauss_s[b0 + j];
-    __syncthreads();
-    for (int k = p; k < nb * F; k += P) {
-      const int j = k / F;
-      const int f = k - j * F;
-      s_rows[k] = table[s_gid[j] * F + f];
-    }
-    __syncthreads();
-    if (!done) {
-      for (int j = 0; j < nb; ++j) {
-        const float* row = s_rows + j * F;
-        const float dx = row[0] - px;
-        const float dy = row[1] - py;
-        const float power =
-            -0.5f * (row[2] * dx * dx + row[4] * dy * dy) - row[3] * dx * dy;
-        if (power > 0.0f) continue;
-        const float alpha = fminf(ALPHA_MAX, row[5] * expf(power));
-        if (alpha < ALPHA_MIN) continue;
-        const float test_t = T * (1.0f - alpha);
-        if (test_t < T_EPS) {
-          done = 1;
-          break;
-        }
-        const float w = alpha * T;
+  if (end > start) {  // the same for the whole block
+    const Pipe pipe{reinterpret_cast<int64_t*>(smem),
+                    reinterpret_cast<float*>(smem + Pipe::RING_BYTES),
+                    gauss_s, table, start, end};
+    pipe.start_up();
+    const int nbatch = pipe.batches();
+    for (int b = 0; b < nbatch; ++b) {
+      pipe.prefetch(b);
+      const float4* rows4 = reinterpret_cast<const float4*>(pipe.batch(b));
+      const int nb = pipe.count(b);
+      bool warp_done = __all_sync(FULL_MASK, done);
+      for (int first = 0; first < nb && !warp_done; first += 32) {
+        unsigned todo = rows_to_march<C>(rows4, first, nb, lane, box);
+        while (todo != 0) {
+          warp_done = __all_sync(FULL_MASK, done);
+          if (warp_done) break;  // the same for the whole warp
+          int row[GROUP];
+          float alpha[GROUP];
+          next_group<C>(todo, first, rows4, px, py, row, alpha);  // stage 1
+          // Stage 2: the chain through T, in depth order.
 #pragma unroll
-        for (int k = 0; k < C; ++k) acc[k] += w * row[6 + k];
-        T = test_t;
-        ++count;
+          for (int i = 0; i < GROUP; ++i) {
+            float t_after;
+            const bool inc = includes(alpha[i], T, done, t_after);
+            const float4* r4 = rows4 + max(row[i], 0) * (R::STRIDE / 4);
+            if (C <= 8) {
+              const float w = inc ? alpha[i] * T : 0.0f;
+              for_each_color<C>(r4, [&](int k, float c) { acc[k] = fmaf(w, c, acc[k]); });
+            } else if (inc) {
+              const float w = alpha[i] * T;
+              for_each_color<C>(r4, [&](int k, float c) { acc[k] = fmaf(w, c, acc[k]); });
+            }
+            T = inc ? t_after : T;
+            count += inc ? 1 : 0;
+          }
+        }
       }
+      cp_async_wait_all();
+      // Ends the batch: the next one's rows are visible, this one's buffer is
+      // free, and the block leaves once every pixel has saturated.
+      if (__syncthreads_count(done) == P) break;
     }
   }
 
-  const size_t pix = (size_t)t * P + p;
-#pragma unroll
-  for (int k = 0; k < C; ++k) tiles[pix * C + k] = acc[k] + T * bg[k];
+  const size_t pix = (size_t)t * P + pixel;
   final_t[pix] = T;
   n_contrib[pix] = count;
+  if (C > 8) {
+    // No thread reads a row after the loop's last barrier, so the buffers
+    // are free to stage the colors: written by pixel, read back in the
+    // output's order, whole lines to device memory.
+    constexpr int SS = FwdSmem<C>::STAGE_STRIDE;
+    float* stage = reinterpret_cast<float*>(smem);
+#pragma unroll
+    for (int k = 0; k < C; ++k) stage[pixel * SS + k] = acc[k] + T * bg[k];
+    __syncthreads();
+    float* out = tiles + (size_t)t * P * C;
+    for (int e = p; e < P * C; e += P) {
+      const int q = e / C;
+      out[e] = stage[q * SS + (e - q * C)];
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < C; ++k) tiles[pix * C + k] = acc[k] + T * bg[k];
+  }
 }
 
 template <int C>
@@ -115,7 +157,16 @@ cudaError_t launch(const int64_t* gauss_s, const int* tile_starts,
                    const float* table, const float* bg, float* tiles,
                    float* final_t, int* n_contrib, int num_tiles, int grid_x,
                    int tile_size, cudaStream_t stream) {
-  blend_fwd_kernel<C><<<num_tiles, tile_size * tile_size, 0, stream>>>(
+  const int P = tile_size * tile_size;
+  if (tile_size != 16 && tile_size != 8) return cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(table) % 8 != 0) return cudaErrorMisalignedAddress;
+  const size_t bytes = FwdSmem<C>::bytes(P);
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        blend_fwd_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+  }
+  blend_fwd_kernel<C><<<num_tiles, P, bytes, stream>>>(
       gauss_s, tile_starts, table, bg, tiles, final_t, n_contrib, grid_x,
       tile_size);
   return cudaGetLastError();
@@ -124,7 +175,7 @@ cudaError_t launch(const int64_t* gauss_s, const int* tile_starts,
 }  // namespace
 
 // Returns a cudaError_t code (0 on success); 1 (cudaErrorInvalidValue) for a
-// channel count without an instance here.
+// channel count without an instance here or a tile that is not 16 x 16 or 8 x 8.
 extern "C" int blend_fwd_launch(int channels, const void* gauss_s,
                                 const void* tile_starts, const void* table,
                                 const void* bg, void* tiles, void* final_t,

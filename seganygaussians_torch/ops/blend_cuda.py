@@ -3,7 +3,8 @@
 Counterpart of ``seganygaussians_tpu/ops/blend_pallas.py`` (``blend_fused``,
 which launches the Pallas ``_fwd_kernel`` and, for its gradient,
 ``_bwd_kernel`` followed by ``segment_reduce_by_rank``).  The kernels live in
-``csrc/blend_fwd.cu`` and ``csrc/blend_bwd.cu``; each is compiled with
+``csrc/blend_fwd.cu`` and ``csrc/blend_bwd.cu`` (both on
+``csrc/blend_common.cuh``); each is compiled with
 ``nvcc`` for ``sm_90a`` at first use into ``build/torch_ext/`` and bound
 through ``ctypes`` (a plain C interface, so a build takes seconds, not the
 minutes a source including PyTorch's headers takes).
@@ -20,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -46,6 +48,33 @@ NVCC_FLAGS = (
 )
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
+
+
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def source_closure(source: Path) -> list[Path]:
+    """``source`` and every file it includes with ``#include "..."``, directly
+    or through another such file (paths relative to the including file)."""
+    seen, todo = [], [Path(source).resolve()]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        for name in _INCLUDE.findall(path.read_text()):
+            todo.append((path.parent / name).resolve())
+    return seen
+
+
+def build_digest(source: Path, flags) -> str:
+    """What names a built library: the source, the headers it includes and the
+    compiler flags.  A changed header must not load a stale library."""
+    h = hashlib.sha256()
+    for path in sorted(source_closure(source)):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(flags).encode())
+    return h.hexdigest()[:16]
 
 
 def _find_nvcc() -> str:
@@ -90,9 +119,7 @@ class _CudaKernel:
 
     def build(self) -> Path:
         """Compile the source (once per content and flag set); return the .so."""
-        digest = hashlib.sha256(
-            self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
+        digest = build_digest(self.source, NVCC_FLAGS)
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         lib_path = BUILD_DIR / f"lib{self.name}_{digest}.so"
         if lib_path.exists():
@@ -144,8 +171,7 @@ class _CudaKernel:
             )
         if bg.shape != (c,):
             raise ValueError(f"{self.name} kernel: bg shape {tuple(bg.shape)}, needs ({c},)")
-        p = tile_size * tile_size
-        if p > 1024 or p % 32:
+        if tile_size not in (8, 16):  # one thread per pixel, whole warps, at most 256
             raise ValueError(f"{self.name} kernel: tile_size {tile_size} unsupported")
         return c
 
@@ -204,7 +230,7 @@ class BackwardKernel(_CudaKernel):
     ``segment_reduce_by_rank`` after it."""
 
     name = "blend_bwd"
-    argtypes = [_INT] + [_PTR] * 9 + [ctypes.c_longlong, _INT, _INT, _INT, _PTR]
+    argtypes = [_INT] + [_PTR] * 9 + [_INT, _INT, _INT, _PTR]
 
     def __call__(
         self,
@@ -239,7 +265,7 @@ class BackwardKernel(_CudaKernel):
             c, num_tiles, table.device,
             gauss_s.data_ptr(), tile_starts.data_ptr(), table.data_ptr(), bg.data_ptr(),
             g_tiles.data_ptr(), g_final_t.data_ptr(), tiles.data_ptr(), final_t.data_ptr(),
-            d_table.data_ptr(), table.shape[0], num_tiles, grid_x, tile_size,
+            d_table.data_ptr(), num_tiles, grid_x, tile_size,
         )
         return d_table
 
@@ -325,6 +351,102 @@ def blend_backward_plain(
         torch.zeros_like(table) if d_table is None else d_table,
         torch.zeros_like(bg) if d_bg is None else d_bg,
     )
+
+
+def blend_backward_moments(
+    gauss_s: torch.Tensor,  # (M,) depth rank per sorted instance
+    tile_starts: torch.Tensor,  # (T+1,)
+    table: torch.Tensor,  # (N, 6 + C)
+    bg: torch.Tensor,  # (C,)
+    g_tiles: torch.Tensor,  # (T, P, C)
+    g_final_t: torch.Tensor,  # (T, P)
+    grid: tuple[int, int, int],  # (grid_x, grid_y, tile_size)
+    tile_local: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``d_table`` summed the way ``csrc/blend_bwd.cu`` sums it, in float32
+    PyTorch on any device; for the tests (the CUDA kernel cannot run without
+    a card, its arithmetic can).  Per instance: the color rows are W·G (each
+    pixel's weight times its cotangent), the geometry rows come from the six
+    moments of d_s over the pixel coordinates inside the tile,
+    Σ d_s·[1, qx, qy, qx², qy², qx·qy], through the expansion of
+    ``blend_pallas.py:563-570`` with the mean taken relative to the tile's
+    corner.  ``tile_local=False`` takes absolute pixel coordinates instead,
+    which is what the expansion cannot afford in float32.  Returns
+    (d_table, d_bg)."""
+    grid_x, grid_y, ts = grid
+    n = table.shape[0]
+    num_tiles = grid_x * grid_y
+    starts = tile_starts.long()
+    live = int(starts[-1])
+    tile_s = torch.repeat_interleave(
+        torch.arange(num_tiles, device=table.device), starts[1:] - starts[:-1]
+    )
+    gid = gauss_s[:live].long().clamp_max(max(n - 1, 0))
+    means2d, conics, opacity, colors = table[:, 0:2], table[:, 2:5], table[:, 5], table[:, 6:]
+
+    # The march, as ops/blend.py runs it.
+    alpha = blend_torch.instance_alphas(gid, tile_s, means2d, conics, opacity, grid_x, ts)
+    log1m = torch.log1p(-alpha)
+    seg_start = starts[tile_s]
+
+    def exclusive_prefix(x):  # per tile segment, in float64
+        cum = torch.cumsum(x.double(), dim=0)
+        base = torch.where((seg_start > 0)[:, None], cum[(seg_start - 1).clamp_min(0)],
+                           torch.zeros_like(cum[:1]))
+        return cum - x.double() - base
+
+    t_before = torch.exp(exclusive_prefix(log1m).float())
+    include = (t_before * (1.0 - alpha) >= blend_torch.T_EPS) & (alpha > 0.0)
+    w = torch.where(include, alpha * t_before, torch.zeros_like(alpha))  # (M, P)
+
+    def per_tile(x):  # (M, P, ...) summed over each tile's instances
+        return torch.zeros((num_tiles, *x.shape[1:]), dtype=x.dtype,
+                           device=x.device).index_add_(0, tile_s, x)
+
+    final_t = torch.exp(per_tile(torch.where(include, log1m, torch.zeros_like(log1m))))
+    tiles = per_tile(w[:, :, None] * colors[gid][:, None, :]) + final_t[:, :, None] * bg
+    g_dot_bg = (g_tiles * bg).sum(-1)
+    u_total = (g_tiles * tiles).sum(-1) - final_t * g_dot_bg
+    tail_const = (g_dot_bg + g_final_t) * final_t
+
+    g = g_tiles[tile_s]  # (M, P, C)
+    g_dot_c = torch.einsum("mpc,mc->mp", g, colors[gid])
+    u = g_dot_c * w
+    suffix = u_total[tile_s] - (exclusive_prefix(u).float() + u)
+    d_alpha = g_dot_c * t_before - (suffix + tail_const[tile_s]) / (1.0 - alpha).clamp_min(1e-6)
+    d_s = torch.where(include & (alpha < blend_torch.ALPHA_MAX), d_alpha * alpha,
+                      torch.zeros_like(alpha))
+
+    # The kernel's two products over a tile's pixels, then the expansion.
+    d_colors = torch.einsum("mp,mpc->mc", w, g)
+    local = torch.arange(ts * ts, device=table.device)
+    qx = (local % ts).float()[None, :]
+    qy = torch.div(local, ts, rounding_mode="floor").float()[None, :]
+    tile_x0 = ((tile_s % grid_x) * ts).float()
+    tile_y0 = (torch.div(tile_s, grid_x, rounding_mode="floor") * ts).float()
+    gx, gy = means2d[gid, 0], means2d[gid, 1]
+    if tile_local:
+        gx, gy = gx - tile_x0, gy - tile_y0
+    else:
+        qx, qy = qx + tile_x0[:, None], qy + tile_y0[:, None]
+    m0, mx, my, mxx, myy, mxy = (
+        (d_s * basis).sum(dim=1)
+        for basis in (torch.ones_like(qx), qx, qy, qx * qx, qy * qy, qx * qy)
+    )
+    ca, cb, cc = conics[gid, 0], conics[gid, 1], conics[gid, 2]
+    d_inst = torch.cat([
+        torch.stack([
+            -(ca * (gx * m0 - mx) + cb * (gy * m0 - my)),
+            -(cc * (gy * m0 - my) + cb * (gx * m0 - mx)),
+            -0.5 * (gx * gx * m0 - 2.0 * gx * mx + mxx),
+            -(gx * gy * m0 - gx * my - gy * mx + mxy),
+            -0.5 * (gy * gy * m0 - 2.0 * gy * my + myy),
+            m0 / opacity[gid].clamp_min(1e-12),
+        ], dim=1),
+        d_colors,
+    ], dim=1)
+    d_table = torch.zeros_like(table).index_add_(0, gid, d_inst)
+    return d_table, torch.einsum("tpc,tp->c", g_tiles, final_t)
 
 
 def blend_fused_plain(

@@ -84,6 +84,32 @@ def test_blend_matches_jax(rng, c, jax_impl):
     _assert_blend_close(got, want)
 
 
+@pytest.mark.parametrize("nan_column", [0, 2, 3])
+def test_plain_blend_skips_a_nan_power_as_jax_does(nan_column):
+    """A NaN mean or conic gives a NaN power.  Both plain versions keep an
+    instance on ``power <= 0``, which is false for NaN: the instance is left
+    out.  The Hopper kernels skip on ``power > 0`` as the reference CUDA
+    rasterizer does and composite it with α = 0.99
+    (tests/test_torch_cuda.py::test_nan_power_is_composited_not_skipped):
+    the kernels and their plain versions differ on such a row."""
+    row = [3.0, 5.0, 0.02, 0.0, 0.02, 0.5, 0.2, 0.4, 0.6]
+    row[nan_column] = float("nan")
+    table = np.array([row, [4.0, 4.0, 0.01, 0.0, 0.01, 0.6, 0.9, 0.1, 0.3]], np.float32)
+    a = dict(gauss_id=np.array([0, 1], np.int32), tile_id=np.array([0, 0], np.int32),
+             tile_starts=np.array([0, 2], np.int32), means2d=table[:, 0:2], conics=table[:, 2:5],
+             opacities=table[:, 5], colors=table[:, 6:], bg=np.array([0.1, 0.5, 0.9], np.float32))
+    grid = (1, 1, 16)
+    want = jblend.blend(
+        *(jnp.asarray(a[k]) for k in ("gauss_id", "tile_id", "tile_starts", "means2d",
+                                      "conics", "opacities", "colors", "bg")),
+        *grid,
+    )
+    got = _torch_blend(a, grid)
+    assert np.isfinite(got.tiles.numpy()).all()
+    np.testing.assert_array_equal(got.n_contrib.numpy(), np.ones((1, 256), np.int32))
+    _assert_blend_close(got, want)
+
+
 @pytest.mark.parametrize("c", [3, 32])
 def test_golden_forward(c):
     g = load_golden(c)

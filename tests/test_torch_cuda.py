@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from seganygaussians_torch.ops import blend as tblend
 from seganygaussians_torch.ops import blend_cuda
 from seganygaussians_torch.ops.binning import expand_slots, sort_instances
@@ -49,7 +50,7 @@ def scene(seed, n=400, c=3, width=96, height=64):
 
 def _binned(s, camera, c, grid=(6, 4, 16)):
     prep = preprocess(s["means"], camera, scales=s["scales"], rotations=s["quats"],
-                      opacities=s["opac"])
+                      tile_size=grid[2], opacities=s["opac"])
     plan = expand_slots(prep, grid[0], grid[1], 1 << 14)
     n = s["means"].shape[0]
     gauss_s, tile_s, starts = sort_instances(plan.slot_rank, plan.slot_tile, n,
@@ -73,16 +74,22 @@ def _assert_close(got, want):
     assert torch.equal(got[2], want.n_contrib)
 
 
+# 96×64 pixels as 16×16 tiles (8 warps a block) and as 8×8 tiles (2 warps).
+GRIDS = {16: (6, 4, 16), 8: (12, 8, 8)}
+C_AND_TILE = [(3, 16), (4, 16), (5, 16), (32, 16), (3, 8), (32, 8)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("c", [3, 4, 5, 32])
-def test_kernel_matches_plain(cuda, c):
+@pytest.mark.parametrize("c, tile_size", C_AND_TILE)
+def test_kernel_matches_plain(cuda, c, tile_size):
     camera, s = scene(c, c=c)
+    grid = GRIDS[tile_size]
     prep = preprocess(s["means"], camera, scales=s["scales"], rotations=s["quats"],
-                      opacities=s["opac"])
-    grid = (6, 4, 16)
+                      tile_size=tile_size, opacities=s["opac"])
     plan = expand_slots(prep, grid[0], grid[1], 1 << 14)
     n = s["means"].shape[0]
-    gauss_s, tile_s, starts = sort_instances(plan.slot_rank, plan.slot_tile, n, 24)
+    gauss_s, tile_s, starts = sort_instances(plan.slot_rank, plan.slot_tile, n,
+                                             grid[0] * grid[1])
     perm = plan.depth_perm
     fields = (prep.means2d[perm], prep.conics[perm], s["opac"][perm], s["colors"][perm])
     want = tblend.blend(gauss_s.clamp_max(n - 1), tile_s, starts, *fields, s["bg"], *grid)
@@ -150,20 +157,22 @@ def test_backward_gradient_reaches_every_input(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c", [3, 4, 5, 32])
-def test_backward_kernel_matches_plain(cuda, c):
+@pytest.mark.parametrize("c, tile_size", C_AND_TILE)
+def test_backward_kernel_matches_plain(cuda, c, tile_size):
     camera, s = scene(c + 10, c=c)
-    gauss_s, _, starts, table = _binned(s, camera, c)
+    grid = GRIDS[tile_size]
+    num_tiles, p = grid[0] * grid[1], tile_size * tile_size
+    gauss_s, _, starts, table = _binned(s, camera, c, grid)
     rng = np.random.default_rng(c)
-    g_tiles = torch.tensor(rng.normal(size=(24, 256, c)), dtype=torch.float32)
-    g_final_t = torch.tensor(rng.normal(size=(24, 256)), dtype=torch.float32)
+    g_tiles = torch.tensor(rng.normal(size=(num_tiles, p, c)), dtype=torch.float32)
+    g_final_t = torch.tensor(rng.normal(size=(num_tiles, p)), dtype=torch.float32)
     want = blend_cuda.blend_backward_plain(gauss_s, starts, table, s["bg"], g_tiles,
-                                           g_final_t, (6, 4, 16))
+                                           g_final_t, grid)
     dev = [x.to(cuda) for x in (gauss_s, starts, table, s["bg"])]
-    tiles, final_t, _ = blend_cuda.FORWARD(*dev, 6, 16)
+    tiles, final_t, _ = blend_cuda.FORWARD(*dev, grid[0], tile_size)
     before = blend_cuda.BACKWARD.launches_by_channels[c]
     got = blend_cuda.blend_backward(*dev, tiles, final_t, g_tiles.to(cuda),
-                                    g_final_t.to(cuda), 6, 16)
+                                    g_final_t.to(cuda), grid[0], tile_size)
     torch.cuda.synchronize()
     assert blend_cuda.BACKWARD.launches_by_channels[c] == before + 1
     assert want[0][:, :6].abs().amax(dim=0).min() > 0
@@ -190,6 +199,111 @@ def test_rasterize_gradients_on_card_match_cpu(cuda, c):
     for a, b in zip(grads["cpu"], grads[str(cuda)]):
         scale = a.abs().max() + 1e-6
         torch.testing.assert_close(b.cpu() / scale, a / scale, atol=2e-4, rtol=0)
+
+
+# --------------------------------------------------------------------------
+# The kernels' inner edges: 4-instance groups, 8-instance sub-chunks, 64-row
+# batches, empty tiles, saturation at any place of a range, padding ranks
+# --------------------------------------------------------------------------
+
+
+def _edge_frames(c, opaque, cuda, tile_size=16):
+    """The same seeded strip of tiles on the CPU (for the plain version) and
+    on the card: ranges of 0..200 instances around every inner edge."""
+    cpu = chip_smoke.edge_case_frame(c, 40 + c, torch.device("cpu"), opaque=opaque,
+                                     tile_size=tile_size)
+    dev = {k: v.to(cuda) if isinstance(v, torch.Tensor) else v for k, v in cpu.items()}
+    return cpu, dev
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opaque", [False, True])
+@pytest.mark.parametrize("c, tile_size", C_AND_TILE)
+def test_forward_kernel_at_range_edges(cuda, c, tile_size, opaque):
+    cpu, dev = _edge_frames(c, opaque, cuda, tile_size)
+    live = cpu["num_instances"]
+    want = chip_smoke.run_plain(cpu, cpu["gauss_s"][:live], cpu["tile_s"], cpu["tile_starts"])
+    got = chip_smoke.run_kernel(dev)
+    torch.cuda.synchronize()
+    assert int(want.n_contrib.max()) > 10
+    if opaque:  # pixels saturate inside the ranges, not only at their ends
+        assert float(want.final_t.min()) < 2e-4
+    _assert_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opaque", [False, True])
+@pytest.mark.parametrize("c, tile_size", C_AND_TILE)
+def test_backward_kernel_at_range_edges(cuda, c, tile_size, opaque):
+    cpu, dev = _edge_frames(c, opaque, cuda, tile_size)
+    g_tiles, g_final_t = chip_smoke.grad_inputs(cpu, 7 + c)
+    want = chip_smoke.run_backward_plain(cpu, cpu["gauss_s"], cpu["tile_starts"], g_tiles,
+                                         g_final_t)
+    got = chip_smoke.run_backward(dev, dev["gauss_s"], dev["tile_starts"], g_tiles.to(cuda),
+                                  g_final_t.to(cuda))
+    torch.cuda.synchronize()
+    _assert_cols_close(got[0], want[0])
+    _assert_cols_close(got[1][None], want[1][None])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opaque", [False, True])
+@pytest.mark.parametrize("c, tile_size", [(3, 16), (32, 16), (3, 8), (32, 8)])
+def test_forward_and_backward_include_the_same_pairs(cuda, c, tile_size, opaque):
+    """Under an all-ones color cotangent a Gaussian's color gradient is the
+    sum of its weights over the pixels that included it: nonzero exactly for
+    the Gaussians the forward march (here the plain version's) included."""
+    cpu, dev = _edge_frames(c, opaque, cuda, tile_size)
+    ones = torch.ones((len(chip_smoke.EDGE_LENGTHS), tile_size * tile_size, c))
+    want = chip_smoke.run_backward_plain(cpu, cpu["gauss_s"], cpu["tile_starts"], ones, None)
+    got = chip_smoke.run_backward(dev, dev["gauss_s"], dev["tile_starts"], ones.to(cuda), None)
+    torch.cuda.synchronize()
+    included = want[0][:, 6:] != 0
+    assert included.any() and not included.all()
+    assert torch.equal(got[0][:, 6:].cpu() != 0, included)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_size", [16, 8])
+@pytest.mark.parametrize("opacity", [0.5, 0.001])
+@pytest.mark.parametrize("nan_column", [0, 2, 3])
+def test_nan_power_is_composited_not_skipped(cuda, nan_column, opacity, tile_size):
+    """The kernels skip on ``power > 0``, as the reference CUDA rasterizer
+    does, so a NaN power (a NaN mean or conic) is kept and composites with
+    α = min(0.99, NaN) = 0.99 whatever the opacity, in the forward and in the
+    backward's re-march; the per-warp culling must not drop it either, not
+    even at an opacity under 1/255.  (``ops/blend.py`` keeps on
+    ``power <= 0`` and leaves such a row out, as the JAX package does:
+    tests/test_torch_blend.py::test_plain_blend_skips_a_nan_power_as_jax_does.
+    So the expectation here is written out, not taken from it.)"""
+    p = tile_size * tile_size
+    bg = torch.tensor([0.1, 0.5, 0.9])
+    row = [3.0, 5.0, 0.02, 0.0, 0.02, opacity, 0.2, 0.4, 0.6]
+    row[nan_column] = float("nan")
+    # Behind it a sound splat that every pixel still sees through T = 0.01.
+    table = torch.tensor([row, [4.0, 4.0, 0.01, 0.0, 0.01, 0.6, 0.9, 0.1, 0.3]])
+    gauss_s = torch.tensor([0, 1], dtype=torch.int64)
+    starts = torch.tensor([0, 2], dtype=torch.int32)
+    alpha = tblend.instance_alphas(gauss_s[1:], torch.zeros(1, dtype=torch.int64),
+                                   table[:, 0:2], table[:, 2:5], table[:, 5], 1, tile_size)
+    assert float(alpha.min()) > 0.1  # (1, P): the sound splat reaches every pixel
+    t_end = 0.01 * (1.0 - alpha)
+    want = tblend.BlendOutput(
+        (0.99 * table[0, 6:] + (0.01 * alpha)[..., None] * table[1, 6:] + t_end[..., None] * bg),
+        t_end, torch.full((1, p), 2, dtype=torch.int32))
+    args = [x.to(cuda) for x in (gauss_s, starts, table, bg)]
+    got = blend_cuda.FORWARD(*args, 1, tile_size)
+    torch.cuda.synchronize()
+    _assert_close(got, want)
+    # Color gradients under an all-ones cotangent: each splat's summed weight.
+    d_table, _ = blend_cuda.blend_backward(*args, got[0], got[1], torch.ones_like(got[0]), None,
+                                           1, tile_size)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(d_table[0, 6:].cpu(), torch.full((3,), 0.99 * p), rtol=1e-5,
+                               atol=0)
+    torch.testing.assert_close(d_table[1, 6:].cpu(), torch.full((3,), float((0.01 * alpha).sum())),
+                               rtol=1e-4, atol=0)
+    assert torch.isfinite(d_table[1]).all()
 
 
 # --------------------------------------------------------------------------
