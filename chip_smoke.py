@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's render and training paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's render, training and segmentation paths on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Builds the forward-blend, backward-blend and scan-variants kernels from
 ``seganygaussians_torch/csrc`` (one ``nvcc`` each, started together) and runs
-nine phases, each of which raises on failure:
+eleven phases, each of which raises on failure (phase 10 runs after phase 8,
+on its feature field, and before phase 9):
 
 1. Kernel against its plain version (``ops/blend.py``) on the same CUDA
    inputs: ~2000 Gaussians at 256×192, C ∈ {3, 4, 5, 32}, then, at C = 3 and
@@ -45,8 +47,10 @@ nine phases, each of which raises on failure:
 7. The scan micro-benchmark kernel (``csrc/scan_variants.cu``) through the
    tool's ``run``: every variant at 1000 chunks on the (256, 256) block,
    held against ``scan_variants_plain`` to 1e-4 relative; µs per chunk, the
-   operations bound at the whole card's rate (and, beside it, scaled to the
-   SMs the variant's grid fills), and ``torch.cumprod``'s time.
+   bound of the function's operations at the whole card's rate (the same for
+   every variant that computes T_before; beside it, scaled to the SMs the
+   variant's grid fills), the feedback chain's latency floor (an estimate),
+   and ``torch.cumprod``'s time.
 8. ``contrastive_step`` at full width: phase 2's 3M Gaussians as a
    ``FeatureState`` (32-dim features, K = 16 smoothing with dropout 0.5, 1000
    rays, the CLI's defaults) against seeded synthetic mask stacks (24 discs
@@ -66,6 +70,26 @@ nine phases, each of which raises on failure:
    logs below that of the first five, median ``cos_pos`` of the last five
    logs ≥ 0.90), and
    ``cli/render.py --target contrastive_feature`` (48 non-constant maps).
+10. The query layer at full width on phase 8's 3M-Gaussian feature field
+   over 8 orbit views at 1297×840: 10 point queries
+   (``cli/prompt_segment.py:point_query``: gate, C = 32 render, prompt,
+   ``segment3d``; median ms, a stage split, the clicked pixel's feature held
+   against the plain blend on its tile to 1e-4); a text query
+   (``text_query``: ``language.text_segment`` on 24 seeded synthetic masks a
+   view, 1 % anchors, a seeded stand-in for the CLIP scores; ms in total and
+   per view, the cluster count); ``lift_scores_to_3d`` over the 8 views (ms
+   per view, one backward launch at C = 3 a view, view 0's accumulator term
+   held against ``blend_backward_plain`` on 64 tiles within 2e-4 of its
+   largest value); ``cluster_features`` (k = 32, 2 % subsample, 20
+   iterations); peak memory.
+11. The segmentation CLIs on phase 9's model and scene copy:
+   ``cli/prompt_segment.py --point`` at the centre of view 0's largest SAM
+   mask (at its scale) gives a 3D mask that is neither empty nor everything,
+   whose segmented PLY renders through ``cli/render.py --target seg`` with
+   an IoU ≥ 0.5 against the clicked mask; ``--text`` without CLIP weights
+   raises; ``cli/get_clip_features.py`` writes sidecars through a seeded
+   stand-in encoder and ``--text --simple_lift`` on them selects Gaussians
+   with one backward launch a view.
 
 The second-to-last line of output is a JSON object describing the kernels
 (times, launches, bound); the last is
@@ -119,6 +143,9 @@ COS_POS_GATE = 0.90  # the JAX run ended at 0.957; the port's seeds at 0.95-0.97
 # NVIDIA H100 80GB HBM3 (700 W limit) gave 0.20-0.37 (medians 0.31-0.59
 # against 1.54-1.80).
 LOSS_RATIO_GATE = 0.45
+N_CLICKS = 10
+QUERY_GOAL_MS = 33.0  # a point query within one frame of interactive use
+IOU_GATE = 0.5  # phase 11: the segmented render against the clicked SAM mask
 
 
 class SmokeFailure(RuntimeError):
@@ -1074,6 +1101,7 @@ def phase_scan(device, card) -> tuple[list, float]:
     library_us = {1: tool.cumprod_library_us(device, dim=1),
                   0: tool.cumprod_library_us(device, dim=0)}
     entries, worst = [], 0.0
+    low, high = tool.latency_floor_us()
     for v in tool.VARIANTS:
         us, out = runs[v]
         check(launches[v] > 0, f"scan variant {v} was not launched")
@@ -1095,7 +1123,8 @@ def phase_scan(device, card) -> tuple[list, float]:
         lib_us = None if v == "exp_only" else library_us[0 if v == "roll_sub" else 1]
         lib_txt = "none" if lib_us is None else f"{lib_us:.3f} us/call"
         print(f"phase 7: {v:11s} {us:8.3f} us/chunk ({tool.P}x{tool.K}, {n_chunk} chunks, "
-              f"{launches[v]} launches), bound {bound_us:.4f} us by operations on the card "
+              f"{launches[v]} launches), bound {bound_us:.4f} us by the function's operations "
+              f"on the card "
               f"({grid_us:.4f} us on the {sms} of {tool.NUM_SMS} SMs its grid fills), plain {plain_ms / n_chunk * 1e3:.1f} us/chunk (no yardstick "
               f"of speed), torch.cumprod {lib_txt}; max |kernel - plain| {err:.3g} "
               f"({rel:.3g} relative)  [{card}]")
@@ -1113,7 +1142,11 @@ def phase_scan(device, card) -> tuple[list, float]:
             "library_ms": None if lib_us is None else lib_us * n_chunk / 1e3,
             "bound_ms_on_grid_sms": grid_us * n_chunk / 1e3,
             "sms": sms,
+            "latency_floor_ms_estimate": [low * n_chunk / 1e3, high * n_chunk / 1e3],
         })
+    print(f"phase 7: the chunks' feedback chain sets a latency floor of {low:.4f}-{high:.4f} "
+          f"us/chunk (an estimate from its instructions, not a measurement), above every "
+          f"bound  [{card}]")
     if runs["log_tri"][0] >= runs["log_tri_hs"][0]:
         print("phase 7: the TF32 tensor-core product (log_tri) is no faster than the fp32 one "
               "(log_tri_hs) on this card at this size")
@@ -1234,9 +1267,10 @@ def step_backward_errors(args, device):
     return unit, clipped, info
 
 
-def phase_contrastive(device, card, s, capacity) -> dict[str, int]:
+def phase_contrastive(device, card, s, capacity) -> tuple[dict[str, int], object, object]:
     """contrastive_step at full width on phase 2's scene; returns the forward
-    and backward kernels' C = 32 launches over the main-path window."""
+    and backward kernels' C = 32 launches over the main-path window, and the
+    trained feature state and scale gate."""
     from seganygaussians_torch.models import feature_gaussians as fgm
     from seganygaussians_torch.models import optim
     from seganygaussians_torch.ops.blend_cuda import BACKWARD, FORWARD
@@ -1361,7 +1395,7 @@ def phase_contrastive(device, card, s, capacity) -> dict[str, int]:
           f"{float(aux['cosine_neg']):.4f}; peak memory {peak_gb:.2f} GB  [{card}]")
     print(f"phase 8: contrastive-step stages (one instrumented step), device ms: "
           f"{json.dumps({k: round(v, 3) for k, v in stages.items()})}  [{card}]")
-    return {"fwd": fwd[32], "bwd": bwd[32]}
+    return {"fwd": fwd[32], "bwd": bwd[32]}, state, gate
 
 
 def untrained_contrastive_metrics(device, src, model_dir, num_rays, capacity) -> dict:
@@ -1563,6 +1597,355 @@ def phase_contrastive_cli(device, card, model_dir) -> tuple[dict[str, int], dict
     return launches, depth_entry
 
 
+# ---------------------------------------------------------------------------
+# Phases 10-11: the segmentation and query layer
+# ---------------------------------------------------------------------------
+
+
+class QueryView:
+    """A view as the query layer reads it: the camera and its SAM sidecars."""
+
+    def __init__(self, params, sam_masks, mask_scales, clip_features):
+        self.params, self.sam_masks = params, sam_masks
+        self.mask_scales, self.clip_features = mask_scales, clip_features
+
+
+class StandInClip:
+    """A seeded stand-in for the CLIP towers (no weights exist offline): a
+    fixed pseudo-embedding per prompt string, and per image crop its mean
+    color spread over the embedding."""
+
+    dim = 64
+
+    def encode_text(self, prompts):
+        import hashlib
+
+        return np.asarray([np.random.default_rng(int.from_bytes(
+            hashlib.sha256(p.encode()).digest()[:4], "little")).normal(size=self.dim)
+            for p in prompts], np.float32)
+
+    def encode_image(self, images):
+        return np.asarray([np.resize(np.asarray(im, np.float32).mean(axis=(0, 1)) / 255.0 + 0.1,
+                                     self.dim) for im in images], np.float32)
+
+
+def to_tiles(image, grid_x, grid_y, ts):
+    """(H, W) image → (T, ts²) tile layout (``tiles_to_image``'s inverse),
+    zero past the frame's edge."""
+    h, w = image.shape
+    padded = torch.zeros((grid_y * ts, grid_x * ts), device=image.device)
+    padded[:h, :w] = image
+    return padded.reshape(grid_y, ts, grid_x, ts).permute(0, 2, 1, 3).reshape(-1, ts * ts)
+
+
+def point_stages(query) -> tuple[dict[str, float], torch.Tensor]:
+    """Device ms of each stage of one point query (``query`` runs one): the
+    gate, the C = 32 feature render, the prompt and ``segment3d``, from CUDA
+    events around the functions ``point_query`` calls; also the rendered
+    feature map."""
+    from seganygaussians_torch.cli import prompt_segment as ps
+    from seganygaussians_torch.seg import queries
+
+    places = [(ps, "render_feature_map"), (queries, "segment3d")]
+    spies = {name: Spy(getattr(mod, name)) for mod, name in places}
+    ends = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for mod, name in places:
+        setattr(mod, name, spies[name])
+    try:
+        ends[0].record()
+        query()
+        ends[1].record()
+        torch.cuda.synchronize()
+    finally:
+        for mod, name in places:
+            setattr(mod, name, spies[name].fn)
+    render, seg = spies["render_feature_map"].events[0], spies["segment3d"].events[0]
+    return {
+        "gate_features": ends[0].elapsed_time(render[0]),
+        "feature_render": render[0].elapsed_time(render[1]),
+        "prompt": render[1].elapsed_time(seg[0]),
+        "segment3d": seg[0].elapsed_time(seg[1]),
+        "query_total": ends[0].elapsed_time(ends[1]),
+    }, spies["render_feature_map"].out
+
+
+def timed_call(fn):
+    """(result, device ms from CUDA events, host ms) of one call."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end), (time.perf_counter() - h0) * 1e3
+
+
+def phase_queries(device, card, fs, gate, s, capacity) -> dict:
+    """The query layer at full width on phase 8's feature field: point
+    queries, a text query, the score-map lift and the clustering."""
+    from seganygaussians_torch.cli import prompt_segment as ps
+    from seganygaussians_torch.models import feature_gaussians as fgm
+    from seganygaussians_torch.models import gaussians as gm
+    from seganygaussians_torch.ops.blend_cuda import BACKWARD, FORWARD
+    from seganygaussians_torch.ops.rasterize import RasterConfig
+    from seganygaussians_torch.seg import clip_text, clustering, queries
+
+    config = RasterConfig(capacity=capacity)
+    cams = orbit_cameras(N_CAMS, W_FULL, H_FULL)
+    geom, alive = fs.geom, fs.geom.alive
+    rng = np.random.default_rng(31)
+    # Clicks inside the ball's image, where the frame is covered.
+    clicks = [(int(W_FULL * rng.uniform(0.4, 0.6)), int(H_FULL * rng.uniform(0.4, 0.6)))
+              for _ in range(N_CLICKS)]
+    scale = 0.5
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def point(i):
+        return ps.point_query(fs, gate, cams[i % N_CAMS], clicks[i], scale, 0.75, alive, config)
+
+    with torch.no_grad():
+        point(0)  # warm-up outside the counted window
+        # --- the main path: counts at 0 just before, read just after.
+        FORWARD.reset_counts()
+        BACKWARD.reset_counts()
+        point_ms, point_host, selected = [], [], []
+        for i in range(N_CLICKS):
+            mask, ms, host = timed_call(lambda: point(i))
+            point_ms.append(ms)
+            point_host.append(host)
+            check(tuple(mask.shape) == (N_FULL,) and mask.dtype == torch.bool,
+                  f"point query mask {tuple(mask.shape)} {mask.dtype}")
+            selected.append(int(mask.sum()))
+        point_fwd, point_bwd = dict(FORWARD.launches_by_channels), BACKWARD.launches
+        # ---
+        check(point_fwd[32] == N_CLICKS and sum(point_fwd.values()) == N_CLICKS,
+              f"forward launches {point_fwd} over {N_CLICKS} point queries")
+        check(point_bwd == 0, f"{point_bwd} backward launches in the point queries")
+        stages, fmap = point_stages(lambda: point(0))
+        # The clicked pixel's feature from the kernel against the plain blend
+        # on that pixel's tile.
+        x, y = clicks[0]
+        d = blend_inputs(geom.xyz, fgm.get_opacity(geom)[:, 0], fgm.get_scaling(geom),
+                         fgm.get_rotation(geom), queries.gate_features(fs.point_features, gate,
+                                                                       scale),
+                         cams[0], capacity, torch.zeros(32, device=device))
+        grid_x, _, ts = d["grid"]
+        tile = (y // ts) * grid_x + x // ts
+        plain = run_plain(d, *subset(d, torch.tensor([tile])))
+        pixel_err = float((fmap[y, x] - plain.tiles[tile, (y % ts) * ts + x % ts]).abs().max())
+        check(pixel_err <= TOL_COLOR, f"clicked pixel's feature differs from the plain blend by "
+              f"{pixel_err} (tolerance {TOL_COLOR})")
+        check(float(plain.final_t[tile, (y % ts) * ts + x % ts]) < 0.5, "the click hit background")
+        del d, plain
+        median_point = float(np.median(point_ms))
+        print(f"phase 10: point query (gate, C=32 render, prompt, segment3d) at {W_FULL}x{H_FULL}, "
+              f"{N_FULL} Gaussians: median {median_point:.3f} ms over {N_CLICKS} clicks (device, "
+              f"CUDA events; host {float(np.median(point_host)):.3f}), "
+              f"{'within' if median_point <= QUERY_GOAL_MS else 'over'} the {QUERY_GOAL_MS:g} ms of "
+              f"interactive use; selected {min(selected)}..{max(selected)} Gaussians; forward "
+              f"launches {point_fwd}; clicked pixel's feature vs the plain blend on its tile: max "
+              f"|kernel - plain| {pixel_err:.3g}  [{card}]")
+        print(f"phase 10: point-query stages (one instrumented query), device ms: "
+              f"{json.dumps({k: round(v, 3) for k, v in stages.items()})}  [{card}]")
+
+        # Text query: the language flow on seeded synthetic masks, with a
+        # seeded stand-in for the CLIP scores.
+        views = []
+        for i, cam in enumerate(cams):
+            masks, mask_scales = synthetic_masks(400 + i, N_MASKS, W_FULL, H_FULL)
+            clip = np.random.default_rng(500 + i).normal(size=(N_MASKS, 512)).astype(np.float32)
+            views.append(QueryView(cam, masks, mask_scales, clip))
+        direction = np.random.default_rng(600).normal(size=512).astype(np.float32)
+
+        def text_scores(embeds):
+            """Stand-in relevancy in (0, 1); CLIP itself is not timed."""
+            z = np.asarray(embeds, np.float32) @ direction / np.sqrt(512.0)
+            return (1.0 / (1.0 + np.exp(-3.0 * z))).astype(np.float32)
+
+        text_gen = torch.Generator(device=device).manual_seed(32)
+        # --- the main path: counts at 0 just before, read just after.
+        FORWARD.reset_counts()
+        BACKWARD.reset_counts()
+        res, text_ms, text_host = timed_call(lambda: ps.text_query(
+            fs, gate, views, text_scores, text_gen, 0.85, alive, config))
+        text_fwd = dict(FORWARD.launches_by_channels)
+        # ---
+        check(text_fwd[32] == N_CAMS and sum(text_fwd.values()) == N_CAMS,
+              f"forward launches {text_fwd} over a text query of {N_CAMS} views")
+        check(tuple(res.mask3d.shape) == (N_FULL,), f"text mask shape {tuple(res.mask3d.shape)}")
+        check(len(res.labels) == N_CAMS * N_MASKS and np.isfinite(res.scores).all(),
+              "text query labels or scores")
+        n_clusters = len(set(res.labels[res.labels >= 0].tolist()))
+        print(f"phase 10: text query (language.text_segment, {N_CAMS} views x {N_MASKS} synthetic "
+              f"masks, {round(N_FULL * 0.01)} anchors; CLIP excluded: a stand-in scores the "
+              f"masks): {text_ms:.3f} ms device ({text_ms / N_CAMS:.3f} per view), host "
+              f"{text_host:.3f}; {n_clusters} clusters, {int((res.labels < 0).sum())} noise masks, "
+              f"{len(res.query_scales)} queries, {int(res.mask3d.sum())} Gaussians selected; "
+              f"forward launches {text_fwd}  [{card}]")
+
+        # Lift: per-mask stand-in scores, centred so that some masks count
+        # against → score maps → the mask render's gradient, one forward and
+        # one backward launch at C = 3 a view.
+        score_maps = [clip_text.scores_to_pixel_map(
+            torch.as_tensor(text_scores(v.clip_features) - 0.5, device=device),
+            torch.as_tensor(v.sam_masks, device=device).to(torch.float32)) for v in views]
+        state = gm.GaussianState(
+            params=gm.GaussianParams(xyz=geom.xyz, features_dc=s["features_dc"],
+                                     features_rest=s["features_rest"], scaling=geom.scaling,
+                                     rotation=geom.rotation, opacity=geom.opacity),
+            alive=alive, seg_mask=alive.to(torch.float32))
+        # --- the main path: counts at 0 just before, read just after.
+        FORWARD.reset_counts()
+        BACKWARD.reset_counts()
+        lifted, lift_ms, lift_host = timed_call(lambda: clip_text.lift_scores_to_3d(
+            views, score_maps, state, config=config))
+        lift_fwd, lift_bwd = dict(FORWARD.launches_by_channels), dict(BACKWARD.launches_by_channels)
+        # ---
+        check(lift_bwd[3] == N_CAMS and sum(lift_bwd.values()) == N_CAMS,
+              f"backward launches {lift_bwd} over a lift of {N_CAMS} views")
+        check(lift_fwd[3] == N_CAMS and sum(lift_fwd.values()) == N_CAMS,
+              f"forward launches {lift_fwd} over a lift of {N_CAMS} views")
+        check(0 < int(lifted.sum()) < N_FULL, f"lifted mask selects {int(lifted.sum())}")
+        # The per-Gaussian term of view 0 (d_table's mask column) from the
+        # backward kernel against blend_backward_plain on 64 seeded tiles.
+        d = blend_inputs(geom.xyz, fgm.get_opacity(geom)[:, 0], fgm.get_scaling(geom),
+                         fgm.get_rotation(geom), torch.zeros(N_FULL, 3, device=device), cams[0],
+                         capacity, torch.zeros(3, device=device))
+        grid_x, grid_y, ts = d["grid"]
+        g_tiles = torch.zeros((grid_x * grid_y, ts * ts, 3), device=device)
+        g_tiles[..., 0] = -to_tiles(score_maps[0], grid_x, grid_y, ts)
+        nonempty = torch.nonzero(d["tile_starts"][1:] > d["tile_starts"][:-1]).flatten().cpu()
+        pick = torch.randperm(nonempty.numel(), generator=torch.Generator().manual_seed(34))
+        tiles = nonempty[pick[:N_SUBSET_TILES]].sort().values
+        g_sub = torch.zeros_like(g_tiles)
+        g_sub[tiles.to(device)] = g_tiles[tiles.to(device)]
+        sub = subset(d, tiles)
+        torch.cuda.empty_cache()
+        got = run_backward(d, sub[0], sub[2], g_sub, None)[0][:, 6]
+        want = run_backward_plain(d, sub[0], sub[2], g_sub, None)[0][:, 6]
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), "lift: non-finite accumulator term")
+        largest = float(want.abs().max())
+        lift_err = float((got - want).abs().max())
+        check(largest > 0 and lift_err <= TOL_GRAD * largest, f"lift accumulator term differs "
+              f"from the plain version by {lift_err} of a largest {largest} (tolerance {TOL_GRAD})")
+        del d, g_tiles, g_sub, score_maps
+        print(f"phase 10: lift_scores_to_3d over {N_CAMS} views: {lift_ms:.3f} ms device "
+              f"({lift_ms / N_CAMS:.3f} per view), host {lift_host:.3f}; {int(lifted.sum())} "
+              f"Gaussians selected; forward launches {lift_fwd}, backward launches {lift_bwd}; view "
+              f"0's accumulator term vs blend_backward_plain on {N_SUBSET_TILES} tiles: max "
+              f"|kernel - plain| {lift_err:.3g} of a largest {largest:.3g}  [{card}]")
+
+        # cluster_features: k = 32 on a 2 % subsample, 20 Lloyd iterations.
+        gated = queries.gate_features(fs.point_features, gate, scale)
+        centers, cl_ms, cl_host = timed_call(lambda: clustering.cluster_features(
+            gated, k=32, sample_rate=0.02, iters=20,
+            generator=torch.Generator(device=device).manual_seed(33)))
+        check(tuple(centers.shape) == (32, 32) and bool(torch.isfinite(centers).all()),
+              "cluster centers")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        print(f"phase 10: cluster_features (k=32, {int(N_FULL * 0.02)} of {N_FULL} points, 20 "
+              f"iterations): {cl_ms:.3f} ms device, host {cl_host:.3f}; peak memory over the phase "
+              f"{peak_gb:.2f} GB  [{card}]")
+    return {"point_fwd": point_fwd[32], "text_fwd": text_fwd[32], "lift_fwd": lift_fwd[3],
+            "lift_bwd": lift_bwd[3], "pixel_err": pixel_err, "lift_err": lift_err}
+
+
+def phase_segment_cli(device, card, model_dir) -> dict:
+    """cli/prompt_segment.py on phase 6's scene and phase 9's feature field,
+    on phase 9's copy of examples/synth_scene."""
+    from PIL import Image
+
+    from seganygaussians_torch.cli import get_clip_features, prompt_segment, render
+    from seganygaussians_torch.data import ply
+    from seganygaussians_torch.ops.blend_cuda import BACKWARD, FORWARD
+    from seganygaussians_torch.ops.quantile import apply_quantile_transform, fit_quantile_transform
+    from seganygaussians_torch.seg import clip_text
+
+    src = os.path.join(model_dir, "scene_copy")
+    common = ["-s", src, "-m", model_dir, "--device", str(device), "--raster_capacity", "32768"]
+    # The click: the centre of view 0's largest SAM mask, at that mask's
+    # quantile-normalised scale among all training masks' scales.
+    sam = torch.load(os.path.join(src, "sam_masks", "view_000.pt"), weights_only=False).numpy()
+    k = int(np.argmax(sam.sum(axis=(1, 2))))
+    clicked = sam[k]
+    ys, xs = np.nonzero(clicked)
+    x, y = int(round(xs.mean())), int(round(ys.mean()))
+    check(bool(clicked[y, x]), "the centre of the clicked mask lies outside it")
+    scale_dir = os.path.join(src, "mask_scales")
+    scales = [torch.load(os.path.join(scale_dir, f), weights_only=False).float().reshape(-1)
+              for f in sorted(os.listdir(scale_dir))]
+    q = float(apply_quantile_transform(fit_quantile_transform(torch.cat(scales)),
+                                       scales[0][k : k + 1])[0])
+    out = os.path.join(model_dir, "seg_point")
+    FORWARD.reset_counts()
+    t0 = time.perf_counter()
+    check(prompt_segment.main(common + ["--point", str(x), str(y), "--scale", f"{q:.6f}",
+                                        "--out", out]) == 0, "cli/prompt_segment.py --point failed")
+    torch.cuda.synchronize()
+    point_s = time.perf_counter() - t0
+    point_fwd = FORWARD.launches_by_channels[32]
+    check(point_fwd == 1, f"the point prompt launched the C=32 forward kernel {point_fwd} times")
+    mask = torch.load(os.path.join(out, "final_mask.pt"), weights_only=False)
+    (it,) = [d for d in os.listdir(os.path.join(model_dir, "point_cloud"))
+             if os.path.exists(os.path.join(model_dir, "point_cloud", d, "seg_point_cloud.ply"))]
+    n_scene = len(ply.load_gaussians_ply(os.path.join(
+        model_dir, "point_cloud", it, "scene_point_cloud.ply"))["xyz"])
+    n_sel = int(mask.sum())
+    check(0 < n_sel < n_scene, f"the point prompt selected {n_sel} of {n_scene} Gaussians")
+    check(render.main(common + ["--target", "seg", "--skip_test"]) == 0,
+          "cli/render.py --target seg failed")
+    (ours,) = os.listdir(os.path.join(model_dir, "seg"))
+    mask_png = os.path.join(model_dir, "seg", ours, "train", "masks", "00000.png")
+    rendered = np.asarray(Image.open(mask_png)) > 127
+    iou = float((rendered & clicked).sum() / (rendered | clicked).sum())
+    print(f"phase 11: cli/prompt_segment.py --point {x} {y} (the centre of view 0's largest SAM "
+          f"mask, {int(clicked.sum())} px) --scale {q:.4f}: {n_sel} of {n_scene} Gaussians in "
+          f"{point_s:.1f} s (scene load included); the segmented PLY rendered through "
+          f"cli/render.py --target seg: IoU with the clicked mask in view 0 {iou:.3f} (gate "
+          f"{IOU_GATE})  [{card}]")
+    check(iou >= IOU_GATE, f"IoU of the segmented render with the clicked mask {iou:.3f} < "
+          f"{IOU_GATE}")
+
+    try:
+        prompt_segment.main(common + ["--text", "a blue blob", "--out", out])
+    except RuntimeError as e:
+        check("CLIP weights unavailable" in str(e), f"--text without weights raised {e}")
+    else:
+        check(False, "--text without CLIP weights did not raise")
+    print("phase 11: --text without CLIP weights raised 'CLIP weights unavailable'")
+
+    real = clip_text.ClipEncoder
+    clip_text.ClipEncoder = lambda **kw: real(_impl=StandInClip())
+    try:
+        check(get_clip_features.main(["--image_root", src, "--device", str(device)]) == 0,
+              "cli/get_clip_features.py failed")
+        out = os.path.join(model_dir, "seg_lift")
+        FORWARD.reset_counts()
+        BACKWARD.reset_counts()
+        t0 = time.perf_counter()
+        check(prompt_segment.main(common + ["--text", "a blue blob", "--simple_lift",
+                                            "--out", out]) == 0,
+              "cli/prompt_segment.py --text --simple_lift failed")
+        torch.cuda.synchronize()
+        lift_s = time.perf_counter() - t0
+        lift_fwd, lift_bwd = FORWARD.launches_by_channels[3], BACKWARD.launches_by_channels[3]
+    finally:
+        clip_text.ClipEncoder = real
+    n_views = len(os.listdir(os.path.join(src, "clip_features")))
+    check(n_views == 48, f"{n_views} clip_features sidecars")
+    check(lift_bwd == n_views and lift_fwd == n_views,
+          f"--simple_lift launches: forward {lift_fwd}, backward {lift_bwd} over {n_views} views")
+    n_lift = int(torch.load(os.path.join(out, "final_mask.pt"), weights_only=False).sum())
+    check(n_lift > 0, "--text --simple_lift selected nothing")
+    print(f"phase 11: cli/get_clip_features.py wrote {n_views} sidecars (stand-in encoder); "
+          f"--text --simple_lift: {n_lift} of {n_scene} Gaussians in {lift_s:.1f} s, C=3 launches "
+          f"forward {lift_fwd}, backward {lift_bwd}  [{card}]")
+    return {"point_fwd": point_fwd, "lift_fwd": lift_fwd, "lift_bwd": lift_bwd, "iou": iou}
+
+
 def build_kernels() -> None:
     """One nvcc per kernel source, started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -1621,10 +2004,13 @@ def main() -> int:
     try:
         timed("phase 6", phase_train_cli, device, card, model_dir)
         scan_entries, err_scan = timed("phase 7", phase_scan, device, card)
-        step_launches = timed("phase 8", phase_contrastive, device, card, scene, capacity)
-        del scene
+        step_launches, fstate, fgate = timed("phase 8", phase_contrastive, device, card, scene,
+                                             capacity)
+        query = timed("phase 10", phase_queries, device, card, fstate, fgate, scene, capacity)
+        del scene, fstate, fgate
         cli_launches, depth_entry = timed("phase 9", phase_contrastive_cli, device, card,
                                           model_dir)
+        seg_cli = timed("phase 11", phase_segment_cli, device, card, model_dir)
     finally:
         shutil.rmtree(model_dir, ignore_errors=True)
     # The C = 32 kernels' launches on this slice's paths, beside phase 2's and 5's.
@@ -1633,11 +2019,22 @@ def main() -> int:
             side = "fwd" if entry["name"].startswith("blend_fwd") else "bwd"
             entry["launches_contrastive_step"] = step_launches[side]
             entry["launches_contrastive_cli"] = cli_launches[side]
+    # The query layer's launches (phases 10 and 11).
+    for entry in entries:
+        if entry["name"] == "blend_fwd[C=32]":
+            entry["launches_point_queries"] = query["point_fwd"]
+            entry["launches_text_query"] = query["text_fwd"]
+            entry["launches_prompt_cli"] = seg_cli["point_fwd"]
+        elif entry["name"] in ("blend_fwd[C=3]", "blend_bwd[C=3]"):
+            side = "fwd" if entry["name"].startswith("blend_fwd") else "bwd"
+            entry["launches_lift"] = query[f"lift_{side}"]
+            entry["launches_lift_cli"] = seg_cli[f"lift_{side}"]
     entries.append(depth_entry)
     entries += scan_entries
-    worst = max(err_full, depth_entry["max_abs_err"], *small_errors.values())
+    worst = max(err_full, depth_entry["max_abs_err"], query["pixel_err"], *small_errors.values())
     print(f"max |kernel - plain| over all comparisons: forward {worst:.3g}, "
-          f"backward {err_bwd:.3g}; scan variants {err_scan:.3g} relative")
+          f"backward {err_bwd:.3g} (the lift's accumulator {query['lift_err']:.3g}); scan "
+          f"variants {err_scan:.3g} relative")
     print(f"whole run {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": entries}))

@@ -66,10 +66,10 @@
 // as well.  The order of the atomic adds changes from run to run, so the
 // sums are not bitwise reproducible.
 //
-// Numerics.  The march is the forward's (expf, --fmad=false, !(power > 0)
-// with NaN kept), so both include the same instances.  The products use
-// fmaf; no tensor cores: TF32 inputs lose the gradient (blend_pallas.py:
-// 164-170).
+// Numerics.  The march is the forward's (expf, --fmad=false, kept only on
+// power <= 0, so a NaN power is skipped), so both include the same
+// instances.  The products use fmaf; no tensor cores: TF32 inputs lose the
+// gradient (blend_pallas.py:164-170).
 
 #include "blend_common.cuh"
 

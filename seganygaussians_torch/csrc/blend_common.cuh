@@ -105,10 +105,11 @@ __device__ __forceinline__ Box warp_box(int thread, int tile_size, float tile_x0
 // mean in x and sqrt(τ a / det) in y.  Conservative: 1 % and half a pixel are
 // added to the reach, far more than the fp32 error of the march's own power.
 // Only a sound row is ever left out: one whose power is a finite number <= 0
-// (up to rounding) at every pixel.  A NaN anywhere in the row, a conic that
-// is not positive definite or nearly singular, or values so large that the
-// power's terms could overflow to inf - inf, make the power NaN somewhere,
-// and a NaN power composites with α = 0.99 whatever the opacity (alpha_of).
+// (up to rounding) at every pixel, so that the ellipse above describes it.
+// A conic that is not positive definite or nearly singular has no such
+// ellipse and may reach α >= 1/255 anywhere; a NaN in the row or values so
+// large that the power's terms overflow to inf - inf give a NaN power, which
+// alpha_of skips (α = 0).  Such rows are marched, never culled here.
 __device__ __forceinline__ bool misses_box(float4 q0, float4 q1, const Box& box) {
   const float x = q0.x, y = q0.y, a = q0.z, b = q0.w, c = q1.x, opacity = q1.y;
   const float det = a * c - b * b;
@@ -124,18 +125,19 @@ __device__ __forceinline__ bool misses_box(float4 q0, float4 q1, const Box& box)
   return sound && (opacity < 0.0039f || outside);
 }
 
-// α of one instance at pixel (px, py); 0 for an instance the march skips
-// (power > 0).  A NaN power is not skipped: fminf drops the NaN and it
-// composites with α = 0.99, as in the reference CUDA rasterizer (ops/blend.py
-// and the JAX package keep on power <= 0 and leave it out).  Evaluated
-// without a branch, so the exponentials of a group of instances overlap.
+// α of one instance at pixel (px, py); 0 for an instance the march skips.
+// An instance is kept only on power <= 0, as in ops/blend.py and the JAX
+// package (seganygaussians_tpu/ops/blend.py, blend_pallas.py): a NaN power
+// (a NaN mean or conic) fails the test and gives α = 0, where fminf alone
+// would drop the NaN and composite the row with α = 0.99.  Evaluated without
+// a branch, so the exponentials of a group of instances overlap.
 __device__ __forceinline__ float alpha_of(float x, float y, float a, float b, float c,
                                           float opacity, float px, float py) {
   const float dx = x - px;
   const float dy = y - py;
   const float power = -0.5f * (a * dx * dx + c * dy * dy) - b * dx * dy;
   const float alpha = fminf(ALPHA_MAX, opacity * expf(power));
-  return power > 0.0f ? 0.0f : alpha;
+  return power <= 0.0f ? alpha : 0.0f;
 }
 
 // A warp's to-do mask for rows [first, first + 32) of a batch of nb rows: each

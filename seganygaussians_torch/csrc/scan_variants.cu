@@ -36,11 +36,14 @@
 // What bounds it.  The block and the feedback column stay in registers and
 // shared memory for all n_chunk iterations; device memory is touched once at
 // each end (256 KB in, 256 KB out), so the bound is operations: per chunk one
-// expf and the scan's multiplies for each of the 65,536 elements, at the
-// whole card's rate.  A (256, 256) block cannot fill 132 SMs with much work
-// each: the row variants use 256 blocks of one row, roll_sub 32 blocks,
-// log_tri 16 and seq_march 8, and what a variant loses by leaving SMs empty
-// is the kernel's loss, not a lower bound.
+// expf, the scan's one multiply and the accumulate for each of the 65,536
+// elements, the same for every variant, at the whole card's rate.  The
+// feedback through acc[:, 0] chains the chunks, and that chain's latency is a
+// second floor (an estimate: tools/bench_scan_variants.py:latency_floor_us).
+// A (256, 256) block cannot fill 132 SMs with much work each: the row
+// variants use 256 blocks of one row, roll_sub 32 blocks, log_tri 16 and
+// seq_march 8, and what a variant loses by leaving SMs empty is the kernel's
+// loss, not a lower bound.
 //
 // Numerics.  IEEE fp32, expf and log1pf (not the fast intrinsics); built with
 // --fmad=false like the blend kernels.  log_tri rounds log1p(-alpha) to TF32

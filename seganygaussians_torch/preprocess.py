@@ -29,17 +29,22 @@ def backproject_depth(depth: torch.Tensor, fovx: float, fovy: float) -> torch.Te
     return torch.stack([px, py, depth], dim=-1)
 
 
+def box_sum_3x3(x: torch.Tensor) -> torch.Tensor:
+    """Sum over each pixel's 3×3 window of (..., H, W), zero past the border
+    (``lax.reduce_window(..., add, (1, 3, 3), (1, 1, 1), "SAME")``): nine
+    shifted adds in fp32, and no convolution whose precision a backend flag
+    could lower."""
+    h, w = x.shape[-2:]
+    padded = F.pad(x, (1, 1, 1, 1))
+    return sum(padded[..., dy : dy + h, dx : dx + w] for dy in range(3) for dx in range(3))
+
+
 def erode_masks(masks: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
     """Bilinear-upsample (K, h, w) masks to ``size`` (half-pixel centres, no
-    antialiasing), then 3×3 box-erode with the reference's ≥ 5 threshold.
-    The box sum is nine shifted adds: exact small integers times mask values,
-    and no convolution whose precision a backend flag could lower."""
+    antialiasing), then 3×3 box-erode with the reference's ≥ 5 threshold."""
     up = F.interpolate(masks.to(torch.float32)[:, None], size=tuple(size), mode="bilinear",
                        align_corners=False, antialias=False)[:, 0]
-    padded = F.pad(up, (1, 1, 1, 1))
-    h, w = up.shape[-2:]
-    box = sum(padded[:, dy : dy + h, dx : dx + w] for dy in range(3) for dx in range(3))
-    return box >= 5.0
+    return box_sum_3x3(up) >= 5.0
 
 
 def masked_point_scales(points: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:

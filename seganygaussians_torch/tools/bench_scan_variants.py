@@ -22,6 +22,15 @@ hand-written kernel ``csrc/scan_variants.cu``:
 
 ``scan_variants_plain`` is the same loop in plain PyTorch for the tests and
 the comparison on the card; the tool's timing never uses it.
+
+Two floors stand beside each time.  ``bound_us`` counts the operations of the
+function, the same for every variant that computes T_before, at the card's
+peak rates.  ``latency_floor_us`` is an estimate, not a measurement: chunk
+i's ``exp`` waits on chunk i − 1's ``acc[:, 0]`` (the feedback term), so the
+chunks form one dependent chain of about 40-60 cycles (multiply, add,
+``expf``, ``fminf``, the accumulate, and the hand-over of ``acc[:, 0]``)
+that no design can overlap; at the H100's 1.98 GHz boost clock that is
+0.020-0.030 µs a chunk, 5-8 times ``bound_us``.
 """
 
 from __future__ import annotations
@@ -35,22 +44,27 @@ P, K, N_CHUNK = 256, 256, 1000
 VARIANTS = ("exp_only", "log_tri", "log_tri_hs", "roll_lane", "roll_sub", "seq_march")
 
 # H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor cores
-# 67 TFLOP/s, TF32 on them 495 TFLOP/s, over 132 SMs.
+# 67 TFLOP/s, over 132 SMs.
 PEAK_FP32_PER_S = 67e12
-PEAK_TF32_PER_S = 495e12
 NUM_SMS = 132
 # Thread blocks each variant's grid launches (csrc/scan_variants.cu).
 GRID_BLOCKS = {"exp_only": 256, "log_tri": 16, "log_tri_hs": 256, "roll_lane": 256,
                "roll_sub": 32, "seq_march": 8}
 # Operations the function needs per element and chunk: (special-function
-# calls, fp32 operations, TF32 tensor-core operations).  Every variant needs
-# the one exp of alpha; a K-step scan 1 multiply; Hillis-Steele log2(256) = 8;
-# the strict-upper-triangular product K(K-1)/2 multiply-adds a row, (K-1)
-# operations an element.  The log variants' own log1p and second exp are
-# their way to the same T_before, not part of it, and are not counted.
-OPS = {"exp_only": (1, 0, 0), "log_tri": (1, 0, K - 1), "log_tri_hs": (1, K - 1, 0),
-       "roll_lane": (1, 8, 0), "roll_sub": (1, 8, 0), "seq_march": (1, 1, 0)}
+# calls, fp32 operations).  A bound counts the function's work, not the
+# variant's way to it, so every variant that computes T_before counts the
+# same: the one exp of alpha, the scan's one multiply of (1 - alpha) and the
+# accumulate acc + alpha * T_before (a multiply and an add).  Hillis-Steele's
+# extra passes, the triangular product and the log variants' log1p and second
+# exp are ways to the same T_before and are not counted.  exp_only computes
+# no T_before: its exp alone.
+T_BEFORE_OPS = (1, 3)
+OPS = {"exp_only": (1, 0), **{v: T_BEFORE_OPS for v in VARIANTS[1:]}}
 SFU_OPS = 4  # a special-function call runs at a quarter of the fp32 rate
+# The feedback chain between chunks (see the module docstring): an estimate
+# from its instructions, in cycles, at the published boost clock.
+CHAIN_CYCLES = (40, 60)
+BOOST_CLOCK_HZ = 1.98e9
 
 
 def round_to_tf32(x: torch.Tensor) -> torch.Tensor:
@@ -135,11 +149,18 @@ def seeded_block(device) -> torch.Tensor:
 
 def bound_us(variant: str) -> float:
     """Least µs per chunk the whole card could take for the operations the
-    variant's function needs (``OPS``), each type at its peak rate.  The block
+    variant's function needs (``OPS``) at the fp32 peak rate.  The block
     never leaves the chip, so bytes bound nothing."""
-    special, fp32, tf32 = OPS[variant]
-    per_element = (special * SFU_OPS + fp32) / PEAK_FP32_PER_S + tf32 / PEAK_TF32_PER_S
-    return P * K * per_element * 1e6
+    special, fp32 = OPS[variant]
+    return P * K * (special * SFU_OPS + fp32) / PEAK_FP32_PER_S * 1e6
+
+
+def latency_floor_us() -> tuple[float, float]:
+    """The estimated (low, high) µs per chunk of the feedback chain that ties
+    chunk i to chunk i − 1 (``CHAIN_CYCLES`` at ``BOOST_CLOCK_HZ``): an
+    estimate from the chain's instructions, not a measurement, and the same
+    for every variant."""
+    return tuple(c / BOOST_CLOCK_HZ * 1e6 for c in CHAIN_CYCLES)
 
 
 def bound_us_on_grid_sms(variant: str) -> tuple[float, int]:
@@ -196,6 +217,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device available: the scan benchmark runs on the card")
     print(torch.cuda.get_device_name(torch.device(args.device)))
+    low, high = latency_floor_us()
+    print(f"feedback chain between chunks: {low:.3f}-{high:.3f} us/chunk (an estimate from "
+          f"its instructions, not a measurement)")
     for v in VARIANTS:
         us, _ = run(v, args.n_chunk, args.device)
         grid_us, sms = bound_us_on_grid_sms(v)

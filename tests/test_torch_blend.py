@@ -88,10 +88,8 @@ def test_blend_matches_jax(rng, c, jax_impl):
 def test_plain_blend_skips_a_nan_power_as_jax_does(nan_column):
     """A NaN mean or conic gives a NaN power.  Both plain versions keep an
     instance on ``power <= 0``, which is false for NaN: the instance is left
-    out.  The Hopper kernels skip on ``power > 0`` as the reference CUDA
-    rasterizer does and composite it with α = 0.99
-    (tests/test_torch_cuda.py::test_nan_power_is_composited_not_skipped):
-    the kernels and their plain versions differ on such a row."""
+    out.  The Hopper kernels keep on the same test
+    (tests/test_torch_cuda.py::test_nan_power_is_skipped_as_jax_does)."""
     row = [3.0, 5.0, 0.02, 0.0, 0.02, 0.5, 0.2, 0.4, 0.6]
     row[nan_column] = float("nan")
     table = np.array([row, [4.0, 4.0, 0.01, 0.0, 0.01, 0.6, 0.9, 0.1, 0.3]], np.float32)

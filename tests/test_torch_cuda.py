@@ -267,43 +267,41 @@ def test_forward_and_backward_include_the_same_pairs(cuda, c, tile_size, opaque)
 @pytest.mark.parametrize("tile_size", [16, 8])
 @pytest.mark.parametrize("opacity", [0.5, 0.001])
 @pytest.mark.parametrize("nan_column", [0, 2, 3])
-def test_nan_power_is_composited_not_skipped(cuda, nan_column, opacity, tile_size):
-    """The kernels skip on ``power > 0``, as the reference CUDA rasterizer
-    does, so a NaN power (a NaN mean or conic) is kept and composites with
-    α = min(0.99, NaN) = 0.99 whatever the opacity, in the forward and in the
-    backward's re-march; the per-warp culling must not drop it either, not
-    even at an opacity under 1/255.  (``ops/blend.py`` keeps on
-    ``power <= 0`` and leaves such a row out, as the JAX package does:
-    tests/test_torch_blend.py::test_plain_blend_skips_a_nan_power_as_jax_does.
-    So the expectation here is written out, not taken from it.)"""
+def test_nan_power_is_skipped_as_jax_does(cuda, nan_column, opacity, tile_size):
+    """A NaN mean or conic gives a NaN power.  The kernels keep an instance
+    only on ``power <= 0``, as ``ops/blend.py`` and the JAX package do
+    (tests/test_torch_blend.py::test_plain_blend_skips_a_nan_power_as_jax_does):
+    such a row is left out at any opacity, in the forward and in the
+    backward's re-march, whether or not the per-warp culling could have left
+    it out.  The expectations come from the plain versions on the CPU."""
     p = tile_size * tile_size
     bg = torch.tensor([0.1, 0.5, 0.9])
     row = [3.0, 5.0, 0.02, 0.0, 0.02, opacity, 0.2, 0.4, 0.6]
     row[nan_column] = float("nan")
-    # Behind it a sound splat that every pixel still sees through T = 0.01.
+    # Behind it a sound splat that reaches every pixel of the tile.
     table = torch.tensor([row, [4.0, 4.0, 0.01, 0.0, 0.01, 0.6, 0.9, 0.1, 0.3]])
     gauss_s = torch.tensor([0, 1], dtype=torch.int64)
     starts = torch.tensor([0, 2], dtype=torch.int32)
-    alpha = tblend.instance_alphas(gauss_s[1:], torch.zeros(1, dtype=torch.int64),
-                                   table[:, 0:2], table[:, 2:5], table[:, 5], 1, tile_size)
-    assert float(alpha.min()) > 0.1  # (1, P): the sound splat reaches every pixel
-    t_end = 0.01 * (1.0 - alpha)
-    want = tblend.BlendOutput(
-        (0.99 * table[0, 6:] + (0.01 * alpha)[..., None] * table[1, 6:] + t_end[..., None] * bg),
-        t_end, torch.full((1, p), 2, dtype=torch.int32))
+    want = tblend.blend(gauss_s, torch.zeros(2, dtype=torch.int64), starts, table[:, 0:2],
+                        table[:, 2:5], table[:, 5], table[:, 6:], bg, 1, 1, tile_size)
+    assert torch.equal(want.n_contrib, torch.ones((1, p), dtype=torch.int32))
     args = [x.to(cuda) for x in (gauss_s, starts, table, bg)]
     got = blend_cuda.FORWARD(*args, 1, tile_size)
     torch.cuda.synchronize()
     _assert_close(got, want)
-    # Color gradients under an all-ones cotangent: each splat's summed weight.
-    d_table, _ = blend_cuda.blend_backward(*args, got[0], got[1], torch.ones_like(got[0]), None,
-                                           1, tile_size)
+    g_tiles = torch.ones((1, p, 3))
+    g_final_t = torch.full((1, p), 0.5)
+    d_table, d_bg = blend_cuda.blend_backward(*args, got[0], got[1], g_tiles.to(cuda),
+                                              g_final_t.to(cuda), 1, tile_size)
     torch.cuda.synchronize()
-    torch.testing.assert_close(d_table[0, 6:].cpu(), torch.full((3,), 0.99 * p), rtol=1e-5,
-                               atol=0)
-    torch.testing.assert_close(d_table[1, 6:].cpu(), torch.full((3,), float((0.01 * alpha).sum())),
-                               rtol=1e-4, atol=0)
-    assert torch.isfinite(d_table[1]).all()
+    want_d, want_bg = blend_cuda.blend_backward_plain(gauss_s, starts, table, bg, g_tiles,
+                                                      g_final_t, (1, 1, tile_size))
+    # The NaN row is never included: no entry of its row is touched.  (The
+    # plain version's autograd gives NaN in its geometry columns: 0 · NaN.)
+    assert torch.equal(d_table[0].cpu(), torch.zeros(9))
+    assert torch.equal(want_d[0, 6:], torch.zeros(3))
+    _assert_cols_close(d_table[1:], want_d[1:])
+    _assert_cols_close(d_bg[None], want_bg[None])
 
 
 # --------------------------------------------------------------------------
