@@ -48,6 +48,8 @@ def main(argv=None):
     parser.add_argument("--iteration", type=int, default=-1)
     parser.add_argument("--target", type=str, default="scene",
                         choices=("scene", "seg", "feature", "contrastive_feature"))
+    # Accepted and never read, as by the JAX CLI's parser.
+    parser.add_argument("--segment", action="store_true")
     parser.add_argument("--precomputed_mask", type=str, default=None)
     parser.add_argument("--skip_train", action="store_true")
     parser.add_argument("--skip_test", action="store_true")

@@ -8,8 +8,10 @@ plus ``--device``:
 Runs on CUDA unless ``--device cpu`` is given; asking for CUDA on a machine
 without it raises.  On the card it turns TF32 off for matmuls and cuDNN (SSIM
 also guards its own convolution).  Saves, test evaluations and checkpoints
-fire at their exact iterations.  The network viewer is not ported: without
-``--disable_viewer`` the run says so and trains headless.
+fire at their exact iterations.  Unless ``--disable_viewer`` is given, the
+SIBR network viewer's socket (``viewer/network_gui.py``, ``--ip``/``--port``)
+is polled after every iteration, as the reference's loop does; if the port
+cannot be bound the run says so and trains headless.
 """
 
 from __future__ import annotations
@@ -80,11 +82,47 @@ def main(argv=None):
     ckpt_dir = os.path.join(cfg.model_path, "checkpoints")
     reporter = TrainingReporter(cfg.model_path)
 
+    gui = None
     if not args.disable_viewer:
-        print(f"the network viewer ({args.ip}:{args.port}) is not ported to this "
-              "package; continuing headless")
+        from seganygaussians_torch.viewer.network_gui import NetworkGUI
+
+        try:
+            gui = NetworkGUI(args.ip, args.port)
+        except OSError as e:
+            print(f"viewer socket unavailable ({e}); continuing headless")
+
+    def poll_viewer(tr, it):
+        """Serve the connected viewer's render requests; keep serving while
+        it pauses training (``train`` 0), and past the last iteration while
+        it asks to be kept alive.  The frame is the trainer's state at its
+        current SH degree, rendered with the trainer's raster settings."""
+        from seganygaussians_torch.viewer.interactive import render_view
+
+        def dropped(e):
+            print(f"viewer dropped ({e!r}); training on")
+            gui.drop()
+
+        while gui.try_connect():
+            try:
+                req = gui.receive()
+            except (OSError, ValueError, KeyError) as e:  # the viewer left or sent garbage
+                dropped(e)
+                break
+            img = None
+            if req is not None:
+                img = render_view(tr.state, req.camera, sh_degree=tr.active_sh_degree,
+                                  config=tr.config)
+            try:
+                gui.send(img, cfg.source_path)
+            except OSError as e:
+                dropped(e)
+                break
+            if req is None or req.do_training or (it >= hyper.iterations and not req.keep_alive):
+                break
 
     def on_iteration(tr, it, metrics):
+        if gui is not None:
+            poll_viewer(tr, it)
         if it in test_at and scene.get_test_cameras():
             rep = tr.eval_report(scene.get_test_cameras())
             reporter.eval_report(it, "test", rep["l1"], rep["psnr"])
@@ -114,6 +152,8 @@ def main(argv=None):
                     start_iteration=start_iteration)
     finally:
         reporter.close()
+        if gui is not None:
+            gui.close()
     scene.gaussians = trainer.state
     print("Training complete.")
     return 0

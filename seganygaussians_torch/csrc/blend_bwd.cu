@@ -17,7 +17,7 @@
 // Summed over a tile's pixels, an instance's row is two small products:
 //   d_colors[c] = sum_p w_p g_p[c]
 //   moments m = sum_p d_s,p [1, qx, qy, qx^2, qy^2, qx qy]   (q: the pixel's
-//   coordinates inside its tile, 0..15)
+//   coordinates inside its tile, 0..15, or 0..31 in a 32 x 32 tile)
 // and with the mean taken relative to the tile's corner, dx = gx - qx, so
 //   d_a = -1/2 (gx^2 m0 - 2 gx mx + mxx),  d_b = -(gx gy m0 - gx my - gy mx + mxy),
 //   d_c = -1/2 (gy^2 m0 - 2 gy my + myy),  d_opacity = m0 / opacity,
@@ -36,11 +36,12 @@
 // of 8.24 ms at C = 32 on a 3M-Gaussian 1297x840 frame (NVIDIA H100 80GB
 // HBM3, 700 W limit); the gather alone took 0.08 / 0.20 ms.
 //
-// Design.  The skeleton of blend_common.cuh (one block per tile, one thread
-// per pixel, a warp on 8 x 4 pixels, 64-row batches streamed by cp.async, one
-// barrier a batch, each warp marching only the instances that can touch its
-// pixels), and inside a batch each warp works alone on its 32 pixels, 8
-// marched instances (a sub-chunk) at a time:
+// Design.  The skeleton of blend_common.cuh (one block per tile, or per
+// 16 x 16 quadrant of a 32 x 32 tile, one thread per pixel, a warp on 8 x 4
+// pixels, 64-row batches streamed by cp.async, one barrier a batch, each warp
+// marching only the instances that can touch its pixels), and inside a batch
+// each warp works alone on its 32 pixels, 8 marched instances (a sub-chunk)
+// at a time:
 //   1. the two-stage march of the forward, expression for expression (α of
 //      four instances without a branch, then the chain through T), which
 //      also gives each pixel's w and d_s (0 where not included), stored as
@@ -64,7 +65,12 @@
 // index_add_: the buffer would write and re-read M x (6 + C) floats (2.3 GB
 // at C = 32 on a 3M-Gaussian frame) and index_add_ on the card uses atomics
 // as well.  The order of the atomic adds changes from run to run, so the
-// sums are not bitwise reproducible.
+// sums are not bitwise reproducible.  The four blocks of a 32 x 32 tile each
+// add their quadrant's share of an instance's row the same way.
+//
+// Channel counts.  Instances for C = 3, 4, 5, 8, 16, 24 and 32, as in
+// blend_fwd.cu; ops/blend_cuda.py pads any other C <= 32 with zero columns
+// (their gradient rows are zero and are cut off again there).
 //
 // Numerics.  The march is the forward's (expf, --fmad=false, kept only on
 // power <= 0, so a NaN power is skipped), so both include the same
@@ -94,9 +100,10 @@ struct Split {
 
 template <int N>
 __device__ __forceinline__ void load_floats(float* dst, const float* src) {
-  static_assert(N == 1 || N == 2 || N == 4, "1, 2 or 4 floats");
-  if constexpr (N == 1) {
-    dst[0] = src[0];
+  static_assert(N >= 1 && N <= 4, "1 to 4 floats");
+  if constexpr (N == 1 || N == 3) {  // 3: 12-byte steps, no wider load is aligned
+#pragma unroll
+    for (int i = 0; i < N; ++i) dst[i] = src[i];
   } else if constexpr (N == 2) {
     const float2 v = *reinterpret_cast<const float2*>(src);
     dst[0] = v.x;
@@ -247,7 +254,7 @@ __device__ __forceinline__ void moment_product(const float* dst, float* acc, int
   shared_add<2>(addr, v);
 }
 
-template <int C>
+template <int C, bool QUAD>
 __global__ void __launch_bounds__(MAX_THREADS, C > 8 ? 2 : 3) blend_bwd_kernel(
     const int64_t* __restrict__ gauss_s,   // (M,) depth rank per sorted instance
     const int* __restrict__ tile_starts,   // (T + 1,)
@@ -266,13 +273,14 @@ __global__ void __launch_bounds__(MAX_THREADS, C > 8 ? 2 : 3) blend_bwd_kernel(
   constexpr int CP = M::CP;
   extern __shared__ __align__(16) unsigned char smem[];
 
-  const int t = blockIdx.x;
+  const Region reg = region_of<QUAD>(blockIdx.x, grid_x, tile_size);
+  const int t = reg.tile;
   const int start = tile_starts[t];
   const int end = tile_starts[t + 1];
   if (end <= start) return;  // the whole block: an empty tile has no gradient
 
   const int p = threadIdx.x;
-  const int P = blockDim.x;
+  const int P = blockDim.x;  // pixels of the block's square
   const int lane = p & 31;
   const int warp = p >> 5;
 
@@ -284,14 +292,17 @@ __global__ void __launch_bounds__(MAX_THREADS, C > 8 ? 2 : 3) blend_bwd_kernel(
                   reinterpret_cast<float*>(smem + Pipe::RING_BYTES),
                   gauss_s, table, start, end};
 
-  const float tile_x0 = (float)((t % grid_x) * tile_size);
-  const float tile_y0 = (float)((t / grid_x) * tile_size);
-  const int pixel = pixel_of(p, tile_size);
-  const float px = tile_x0 + (float)(pixel % tile_size);
-  const float py = tile_y0 + (float)(pixel / tile_size);
-  const Box box = warp_box(p, tile_size, tile_x0, tile_y0);
+  const float tile_x0 = reg.tile_x0;
+  const float tile_y0 = reg.tile_y0;
+  const int pixel = pixel_of(p, reg.side);
+  // The square's corner in the image.
+  const float x0 = QUAD ? tile_x0 + (float)reg.qx0 : tile_x0;
+  const float y0 = QUAD ? tile_y0 + (float)reg.qy0 : tile_y0;
+  const float px = x0 + (float)(pixel % reg.side);
+  const float py = y0 + (float)(pixel / reg.side);
+  const Box box = warp_box(p, reg.side, x0, y0);
 
-  const size_t pix = (size_t)t * P + pixel;
+  const size_t pix = (size_t)t * (QUAD ? 4 * P : P) + tile_pixel<QUAD>(reg, pixel, tile_size);
   float g[C];
   float g_dot_bg = 0.0f;
   float g_dot_out = 0.0f;
@@ -445,16 +456,20 @@ cudaError_t launch(const int64_t* gauss_s, const int* tile_starts,
                    const float* g_final_t, const float* tiles,
                    const float* final_t, float* d_table, int num_tiles,
                    int grid_x, int tile_size, cudaStream_t stream) {
-  const int P = tile_size * tile_size;
-  if (tile_size != 16 && tile_size != 8) return cudaErrorInvalidValue;
+  const int side = block_side(tile_size);
+  if (side == 0) return cudaErrorInvalidValue;
+  const long long blocks = (long long)num_tiles * (tile_size == 32 ? 4 : 1);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(table) % 8 != 0) return cudaErrorMisalignedAddress;
+  const int P = side * side;  // threads a block
   const size_t bytes = BwdSmem<C>::bytes(P);
+  auto kernel = tile_size == 32 ? blend_bwd_kernel<C, true> : blend_bwd_kernel<C, false>;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        blend_bwd_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return err;
   }
-  blend_bwd_kernel<C><<<num_tiles, P, bytes, stream>>>(
+  kernel<<<(unsigned)blocks, P, bytes, stream>>>(
       gauss_s, tile_starts, table, bg, g_tiles, g_final_t, tiles, final_t,
       d_table, grid_x, tile_size);
   return cudaGetLastError();
@@ -463,7 +478,8 @@ cudaError_t launch(const int64_t* gauss_s, const int* tile_starts,
 }  // namespace
 
 // Returns a cudaError_t code (0 on success); 1 (cudaErrorInvalidValue) for a
-// channel count without an instance here or a tile that is not 16 x 16 or 8 x 8.
+// channel count without an instance here or a tile that is not 8 x 8, 16 x 16
+// or 32 x 32.
 extern "C" int blend_bwd_launch(int channels, const void* gauss_s,
                                 const void* tile_starts, const void* table,
                                 const void* bg, const void* g_tiles,
@@ -486,6 +502,9 @@ extern "C" int blend_bwd_launch(int channels, const void* gauss_s,
     case 3: return launch<3>(gs, s, tb, b, gt, gf, o, ft, d, num_tiles, grid_x, tile_size, st);
     case 4: return launch<4>(gs, s, tb, b, gt, gf, o, ft, d, num_tiles, grid_x, tile_size, st);
     case 5: return launch<5>(gs, s, tb, b, gt, gf, o, ft, d, num_tiles, grid_x, tile_size, st);
+    case 8: return launch<8>(gs, s, tb, b, gt, gf, o, ft, d, num_tiles, grid_x, tile_size, st);
+    case 16: return launch<16>(gs, s, tb, b, gt, gf, o, ft, d, num_tiles, grid_x, tile_size, st);
+    case 24: return launch<24>(gs, s, tb, b, gt, gf, o, ft, d, num_tiles, grid_x, tile_size, st);
     case 32: return launch<32>(gs, s, tb, b, gt, gf, o, ft, d, num_tiles, grid_x, tile_size, st);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -8,9 +8,11 @@
 // and only the places that say fmaf() (color sums, gradient products, where
 // nothing is compared exactly) use a fused multiply-add.
 //
-// Skeleton.  One thread block per tile, one thread per tile pixel; a warp has
-// a block of 8 x 4 pixels (pixel_of).  A tile's range [tile_starts[t],
-// tile_starts[t+1]) is walked in batches of BATCH instances.  While the block
+// Skeleton.  One thread block per tile of 8 x 8 or 16 x 16 pixels, and four
+// per 32 x 32 tile, one on each 16 x 16 quadrant (Region); one thread per
+// pixel of the block; a warp has a block of 8 x 4 pixels (pixel_of).  A
+// tile's range [tile_starts[t], tile_starts[t+1]) is walked in batches of
+// BATCH instances, by each of a 32 x 32 tile's four blocks in full.  While the block
 // marches batch b, cp.async copies the rows of batch b + 1 (gathered through
 // the depth ranks of that batch, which arrived one batch earlier) and the
 // ranks of batch b + 2, so a batch costs one barrier and nothing waits on a
@@ -42,7 +44,7 @@ constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr int BATCH = 64;          // instances per shared-memory batch
 constexpr int GROUP = 4;            // instances whose α are evaluated together
 constexpr int GID_RING = 4;         // batches of depth ranks kept in shared memory
-constexpr int MAX_THREADS = 256;    // pixels per tile (16 x 16) at most
+constexpr int MAX_THREADS = 256;    // pixels per block (16 x 16) at most
 static_assert(BATCH % 8 == 0 && BATCH >= 8, "BATCH must be a multiple of 8");
 
 // One table row (x, y, conic a, b, c, opacity, C colors) in shared memory.
@@ -72,14 +74,50 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// The pixel of its tile that a thread works on.  In a 16 x 16 tile a warp
-// takes a block of 8 x 4 pixels, not two rows of 16: what a warp's lanes see
-// of a splat (skipped, included, saturated) then differs less, the warp
-// leaves the march sooner, and fewer splats touch its pixels at all
-// (misses_box).  An 8 x 8 tile's warps are 8 x 4 blocks as they are.  Lane l
-// of a warp has the pixel (l & 7, l >> 3) of its block.
-__device__ __forceinline__ int pixel_of(int thread, int tile_size) {
-  if (tile_size != 16) return thread;
+// The square of pixels a thread block works on: a whole tile of 8 x 8 or
+// 16 x 16 pixels, or (QUAD) one 16 x 16 quadrant of a 32 x 32 tile.  A
+// 32 x 32 tile has 1024 pixels, more than MAX_THREADS, so four blocks share
+// it (blocks 4 t .. 4 t + 3); each streams the tile's whole range and its
+// warps' culling (misses_box) leaves out what cannot reach their pixels.  A
+// block's square is addressed row by row (pixel_of), its corner inside the
+// tile is (qx0, qy0), and tile_pixel gives a pixel's index in the tile's
+// (P, C) output.  The kernels are instantiated for QUAD and not, so that a
+// whole-tile block computes exactly what it did before 32 x 32 tiles.
+struct Region {
+  int tile;                // t
+  int side;                // pixels a side of the block's square: 8 or 16
+  int qx0, qy0;            // the square's corner inside the tile
+  float tile_x0, tile_y0;  // the tile's corner in the image
+};
+
+// The side of a block's square for a tile size; 0 for a size the kernels do
+// not take (any but 8, 16 and 32).
+__host__ __device__ __forceinline__ int block_side(int tile_size) {
+  return tile_size == 32 ? 16 : (tile_size == 16 || tile_size == 8) ? tile_size : 0;
+}
+
+template <bool QUAD>
+__device__ __forceinline__ Region region_of(int block, int grid_x, int tile_size) {
+  const int t = QUAD ? block >> 2 : block;
+  const int q = QUAD ? block & 3 : 0;
+  const int side = QUAD ? 16 : tile_size;
+  return Region{t, side, (q & 1) * side, (q >> 1) * side, (float)((t % grid_x) * tile_size),
+                (float)((t / grid_x) * tile_size)};
+}
+
+template <bool QUAD>
+__device__ __forceinline__ int tile_pixel(const Region& r, int pixel, int tile_size) {
+  return QUAD ? (r.qy0 + pixel / 16) * tile_size + r.qx0 + pixel % 16 : pixel;
+}
+
+// The pixel of its block's square that a thread works on.  In a 16 x 16
+// square a warp takes a block of 8 x 4 pixels, not two rows of 16: what a
+// warp's lanes see of a splat (skipped, included, saturated) then differs
+// less, the warp leaves the march sooner, and fewer splats touch its pixels
+// at all (misses_box).  An 8 x 8 tile's warps are 8 x 4 blocks as they are.
+// Lane l of a warp has the pixel (l & 7, l >> 3) of its block.
+__device__ __forceinline__ int pixel_of(int thread, int side) {
+  if (side != 16) return thread;
   const int lane = thread & 31, warp = thread >> 5;
   return ((warp >> 1) * 4 + (lane >> 3)) * 16 + (warp & 1) * 8 + (lane & 7);
 }
@@ -89,18 +127,19 @@ struct Box {
   float x0, x1, y0, y1;
 };
 
-__device__ __forceinline__ Box warp_box(int thread, int tile_size, float tile_x0, float tile_y0) {
-  const int first = pixel_of(thread & ~31, tile_size);  // lane 0: the top left pixel
-  const int last = pixel_of(thread | 31, tile_size);    // lane 31: the bottom right one
-  return Box{tile_x0 + (float)(first % tile_size), tile_x0 + (float)(last % tile_size),
-             tile_y0 + (float)(first / tile_size), tile_y0 + (float)(last / tile_size)};
+// (x0, y0): the corner of the block's square in the image.
+__device__ __forceinline__ Box warp_box(int thread, int side, float x0, float y0) {
+  const int first = pixel_of(thread & ~31, side);  // lane 0: the top left pixel
+  const int last = pixel_of(thread | 31, side);    // lane 31: the bottom right one
+  return Box{x0 + (float)(first % side), x0 + (float)(last % side),
+             y0 + (float)(first / side), y0 + (float)(last / side)};
 }
 
 // True where an instance (row words q0 = x, y, a, b; q1 = c, opacity, ...)
 // cannot reach α >= 1/255 at any pixel of the box, so that the march may
 // leave it out for the whole warp: the binning keeps an instance for a tile
 // that its α >= 1/255 footprint touches, and a warp's pixels are an eighth of
-// the tile.  α >= 1/255 needs opacity >= 1/255 and a dx² + 2b dx dy + c dy²
+// a 16 x 16 tile (a 32nd of a 32 x 32 one).  α >= 1/255 needs opacity >= 1/255 and a dx² + 2b dx dy + c dy²
 // <= τ = 2 ln(255 opacity); that ellipse reaches sqrt(τ c / det) from the
 // mean in x and sqrt(τ a / det) in y.  Conservative: 1 % and half a pixel are
 // added to the reach, far more than the fp32 error of the march's own power.

@@ -18,15 +18,22 @@
 // by the color sums.  At C = 32 a second cost was each pixel writing its 32
 // colors 128 bytes apart.
 //
-// Design.  The skeleton of blend_common.cuh: one block per tile, one thread
-// per pixel, a warp on a block of 8 x 4 pixels; batches of 64 rows streamed
+// Design.  The skeleton of blend_common.cuh: one block per tile (per 16 x 16
+// quadrant of a 32 x 32 tile), one thread per pixel, a warp on a block of
+// 8 x 4 pixels; batches of 64 rows streamed
 // through shared memory by cp.async while the previous batch is marched, one
 // barrier a batch; each warp marches only the instances that can touch its
 // pixels (about half of a tile's), four at a time in two stages: their four
 // α without a branch, then the chain through T, inclusion and the color sum.
 // Pixels outside the image are computed too, so the (T, P, C) output matches
 // ops/blend.py before cropping.  At C > 8 the colors go out through shared
-// memory, so that a warp writes whole 128-byte lines.
+// memory, so that a warp writes whole 128-byte lines: the block's pixels in
+// one run, or at 32 x 32 one run per row of its quadrant.
+//
+// Channel counts.  Instances for C = 3, 4, 5 (RGB, RGB + depth, + mask) and
+// for 8, 16, 24 and 32; ops/blend_cuda.py pads any other C <= 32 with zero
+// color columns to the next of these, as blend_pallas.py pads C to a
+// multiple of 8.
 //
 // Numerics.  IEEE fp32, expf (not __expf) and --fmad=false for α and T,
 // because n_contrib is compared exactly and the 1/255 and 1e-4 thresholds sit
@@ -50,7 +57,7 @@ struct FwdSmem {
   }
 };
 
-template <int C>
+template <int C, bool QUAD>
 __global__ void __launch_bounds__(MAX_THREADS) blend_fwd_kernel(
     const int64_t* __restrict__ gauss_s,   // (M,) depth rank per sorted instance
     const int* __restrict__ tile_starts,   // (T + 1,)
@@ -64,19 +71,21 @@ __global__ void __launch_bounds__(MAX_THREADS) blend_fwd_kernel(
   using Pipe = Pipeline<C, 2>;
   extern __shared__ __align__(16) unsigned char smem[];
 
-  const int t = blockIdx.x;
+  const Region reg = region_of<QUAD>(blockIdx.x, grid_x, tile_size);
+  const int t = reg.tile;
   const int p = threadIdx.x;
-  const int P = blockDim.x;
+  const int P = blockDim.x;  // pixels of the block's square
   const int start = tile_starts[t];
   const int end = tile_starts[t + 1];
 
   const int lane = p & 31;
-  const int pixel = pixel_of(p, tile_size);
-  const float tile_x0 = (float)((t % grid_x) * tile_size);
-  const float tile_y0 = (float)((t / grid_x) * tile_size);
-  const float px = tile_x0 + (float)(pixel % tile_size);
-  const float py = tile_y0 + (float)(pixel / tile_size);
-  const Box box = warp_box(p, tile_size, tile_x0, tile_y0);
+  const int pixel = pixel_of(p, reg.side);
+  // The square's corner in the image.
+  const float x0 = QUAD ? reg.tile_x0 + (float)reg.qx0 : reg.tile_x0;
+  const float y0 = QUAD ? reg.tile_y0 + (float)reg.qy0 : reg.tile_y0;
+  const float px = x0 + (float)(pixel % reg.side);
+  const float py = y0 + (float)(pixel / reg.side);
+  const Box box = warp_box(p, reg.side, x0, y0);
 
   float T = 1.0f;
   int count = 0;
@@ -129,22 +138,35 @@ __global__ void __launch_bounds__(MAX_THREADS) blend_fwd_kernel(
     }
   }
 
-  const size_t pix = (size_t)t * P + pixel;
+  const int tile_p = QUAD ? 4 * P : P;  // pixels of the tile
+  const size_t pix = (size_t)t * tile_p + tile_pixel<QUAD>(reg, pixel, tile_size);
   final_t[pix] = T;
   n_contrib[pix] = count;
   if (C > 8) {
     // No thread reads a row after the loop's last barrier, so the buffers
     // are free to stage the colors: written by pixel, read back in the
-    // output's order, whole lines to device memory.
+    // output's order, whole lines to device memory: the block's pixels lie
+    // in one piece of the output, a quadrant's in one piece a row.
     constexpr int SS = FwdSmem<C>::STAGE_STRIDE;
     float* stage = reinterpret_cast<float*>(smem);
 #pragma unroll
     for (int k = 0; k < C; ++k) stage[pixel * SS + k] = acc[k] + T * bg[k];
     __syncthreads();
-    float* out = tiles + (size_t)t * P * C;
-    for (int e = p; e < P * C; e += P) {
-      const int q = e / C;
-      out[e] = stage[q * SS + (e - q * C)];
+    if (QUAD) {
+      for (int r = 0; r < 16; ++r) {
+        float* out = tiles + ((size_t)t * tile_p + (size_t)(reg.qy0 + r) * 32 + reg.qx0) * C;
+        const float* in = stage + r * 16 * SS;
+        for (int e = p; e < 16 * C; e += P) {
+          const int q = e / C;
+          out[e] = in[q * SS + (e - q * C)];
+        }
+      }
+    } else {
+      float* out = tiles + (size_t)t * P * C;
+      for (int e = p; e < P * C; e += P) {
+        const int q = e / C;
+        out[e] = stage[q * SS + (e - q * C)];
+      }
     }
   } else {
 #pragma unroll
@@ -157,16 +179,20 @@ cudaError_t launch(const int64_t* gauss_s, const int* tile_starts,
                    const float* table, const float* bg, float* tiles,
                    float* final_t, int* n_contrib, int num_tiles, int grid_x,
                    int tile_size, cudaStream_t stream) {
-  const int P = tile_size * tile_size;
-  if (tile_size != 16 && tile_size != 8) return cudaErrorInvalidValue;
+  const int side = block_side(tile_size);
+  if (side == 0) return cudaErrorInvalidValue;
+  const long long blocks = (long long)num_tiles * (tile_size == 32 ? 4 : 1);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(table) % 8 != 0) return cudaErrorMisalignedAddress;
+  const int P = side * side;  // threads a block
   const size_t bytes = FwdSmem<C>::bytes(P);
+  auto kernel = tile_size == 32 ? blend_fwd_kernel<C, true> : blend_fwd_kernel<C, false>;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        blend_fwd_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return err;
   }
-  blend_fwd_kernel<C><<<num_tiles, P, bytes, stream>>>(
+  kernel<<<(unsigned)blocks, P, bytes, stream>>>(
       gauss_s, tile_starts, table, bg, tiles, final_t, n_contrib, grid_x,
       tile_size);
   return cudaGetLastError();
@@ -175,7 +201,8 @@ cudaError_t launch(const int64_t* gauss_s, const int* tile_starts,
 }  // namespace
 
 // Returns a cudaError_t code (0 on success); 1 (cudaErrorInvalidValue) for a
-// channel count without an instance here or a tile that is not 16 x 16 or 8 x 8.
+// channel count without an instance here or a tile that is not 8 x 8, 16 x 16
+// or 32 x 32.
 extern "C" int blend_fwd_launch(int channels, const void* gauss_s,
                                 const void* tile_starts, const void* table,
                                 const void* bg, void* tiles, void* final_t,
@@ -194,6 +221,9 @@ extern "C" int blend_fwd_launch(int channels, const void* gauss_s,
     case 3: return launch<3>(g, s, tb, b, o, ft, nc, num_tiles, grid_x, tile_size, st);
     case 4: return launch<4>(g, s, tb, b, o, ft, nc, num_tiles, grid_x, tile_size, st);
     case 5: return launch<5>(g, s, tb, b, o, ft, nc, num_tiles, grid_x, tile_size, st);
+    case 8: return launch<8>(g, s, tb, b, o, ft, nc, num_tiles, grid_x, tile_size, st);
+    case 16: return launch<16>(g, s, tb, b, o, ft, nc, num_tiles, grid_x, tile_size, st);
+    case 24: return launch<24>(g, s, tb, b, o, ft, nc, num_tiles, grid_x, tile_size, st);
     case 32: return launch<32>(g, s, tb, b, o, ft, nc, num_tiles, grid_x, tile_size, st);
     default: return (int)cudaErrorInvalidValue;
   }

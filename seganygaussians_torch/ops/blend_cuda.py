@@ -10,8 +10,12 @@ through ``ctypes`` (a plain C interface, so a build takes seconds, not the
 minutes a source including PyTorch's headers takes).
 
 A CUDA tensor goes through the kernels or raises: a failed build, a refused
-launch, or a channel count without a kernel instance all raise.  A CPU tensor
-takes the plain version in ``ops/blend.py``, which is differentiable.  The
+launch, more than 32 channels or a tile size other than 8, 16 and 32 all
+raise.  The kernels have instances for C = 3, 4, 5, 8, 16, 24 and 32; any
+other C ≤ 32 runs through the next larger instance on zero-padded color
+columns, as ``blend_pallas.py`` pads C to a multiple of 8, and the padding is
+cut off the outputs (and off the gradients).  A CPU tensor takes the plain
+version in ``ops/blend.py``, which is differentiable.  The
 CUDA path is a ``torch.autograd.Function`` whose forward is the forward kernel
 and whose backward is the backward kernel.
 """
@@ -35,7 +39,9 @@ from seganygaussians_torch.ops.binning import sort_instances
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
-CHANNELS = (3, 4, 5, 32)  # kernel instances in csrc/blend_{fwd,bwd}.cu
+CHANNELS = (3, 4, 5, 8, 16, 24, 32)  # kernel instances in csrc/blend_{fwd,bwd}.cu
+MAX_CHANNELS = CHANNELS[-1]
+TILE_SIZES = (8, 16, 32)  # 32: four blocks a tile, one on each 16×16 quadrant
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -94,7 +100,10 @@ class _CudaKernel:
     ``launches`` goes up by one each time the kernel is launched, and nowhere
     else, so a caller can show that a run went through the kernel;
     ``launches_by_channels`` splits the same count by the launch's first
-    argument (``count_keys``: the channel count C for the blend kernels).
+    argument (``count_keys``: for the blend kernels the channel count of the
+    instance launched, :func:`instance_channels`), and the blend kernels
+    split it again by :func:`instance_name` in ``launches_by_instance``
+    (which also tells the tile sizes apart).
     """
 
     name = ""  # source stem and C entry point prefix
@@ -105,6 +114,7 @@ class _CudaKernel:
         self.source = CSRC / f"{self.name}.cu"
         self.launches = 0
         self.launches_by_channels = dict.fromkeys(self.count_keys, 0)
+        self.launches_by_instance: dict[str, int] = {}
         self.build_log = ""
         self._lib = None
         self._lock = threading.Lock()
@@ -112,6 +122,7 @@ class _CudaKernel:
     def reset_counts(self) -> None:
         self.launches = 0
         self.launches_by_channels = dict.fromkeys(self.count_keys, 0)
+        self.launches_by_instance = {}
 
     @property
     def loaded(self) -> bool:
@@ -160,22 +171,27 @@ class _CudaKernel:
                     f"needs {dtypes.get(name, torch.float32)}"
                 )
 
-    def _channels(self, table: torch.Tensor, bg: torch.Tensor, tile_size: int) -> int:
+    def _channels(self, table: torch.Tensor, bg: torch.Tensor,
+                  tile_size: int) -> tuple[int, int]:
+        """(C, the channel count of the instance that runs it), after the
+        checks that raise on what the kernel does not take."""
         if table.dim() != 2 or table.shape[1] < 7:
             raise ValueError(f"{self.name} kernel: table shape {tuple(table.shape)}")
         c = table.shape[1] - 6
-        if c not in CHANNELS:
+        if c > MAX_CHANNELS:
             raise ValueError(
-                f"{self.name} kernel has no instance for C={c} channels "
-                f"(instances: {CHANNELS})"
+                f"{self.name} kernel takes at most {MAX_CHANNELS} channels, got C={c}"
             )
         if bg.shape != (c,):
             raise ValueError(f"{self.name} kernel: bg shape {tuple(bg.shape)}, needs ({c},)")
-        if tile_size not in (8, 16):  # one thread per pixel, whole warps, at most 256
-            raise ValueError(f"{self.name} kernel: tile_size {tile_size} unsupported")
-        return c
+        if tile_size not in TILE_SIZES:
+            raise ValueError(
+                f"{self.name} kernel: tile_size {tile_size} unsupported (takes {TILE_SIZES})"
+            )
+        return c, instance_channels(c)
 
-    def _launch(self, c: int, num_tiles: int, device: torch.device, *args) -> None:
+    def _launch(self, c: int, num_tiles: int, device: torch.device, *args,
+                instance: Optional[str] = None) -> None:
         lib = self.library()
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
@@ -185,9 +201,32 @@ class _CudaKernel:
         if num_tiles:
             self.launches += 1
             self.launches_by_channels[c] += 1
+            if instance is not None:
+                self.launches_by_instance[instance] = self.launches_by_instance.get(instance, 0) + 1
 
 
 _RANKS = {"gauss_s": torch.int64, "tile_starts": torch.int32}
+
+
+def instance_channels(c: int) -> int:
+    """The channel count of the kernel instance that runs C channels: C
+    itself where there is one, else C rounded up to a multiple of 8."""
+    if not 1 <= c <= MAX_CHANNELS:
+        raise ValueError(f"the blend kernels take 1..{MAX_CHANNELS} channels, got C={c}")
+    return c if c in CHANNELS else -(-c // 8) * 8
+
+
+def instance_name(c: int, tile_size: int) -> str:
+    """The kernel instance that runs C channels on ``tile_size`` tiles, as
+    ``launches_by_instance`` names it: ``C=8`` for C = 6 on 16×16 (or 8×8)
+    tiles, ``C=32,32x32`` for C = 32 on 32×32 tiles."""
+    quad = "" if tile_size in (8, 16) else f",{tile_size}x{tile_size}"
+    return f"C={instance_channels(c)}{quad}"
+
+
+def _pad_channels(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``x`` with zero columns appended to its last axis up to ``c``."""
+    return torch.nn.functional.pad(x, (0, c - x.shape[-1])).contiguous()
 
 
 class ForwardKernel(_CudaKernel):
@@ -209,19 +248,23 @@ class ForwardKernel(_CudaKernel):
         n_contrib (T, P) int32."""
         tensors = {"gauss_s": gauss_s, "tile_starts": tile_starts, "table": table, "bg": bg}
         self._check(tensors, _RANKS, table.device)
-        c = self._channels(table, bg, tile_size)
+        c, ci = self._channels(table, bg, tile_size)
+        if ci != c:
+            table, bg = _pad_channels(table, 6 + ci), _pad_channels(bg, ci)
         p = tile_size * tile_size
         num_tiles = tile_starts.shape[0] - 1
         dev = table.device
-        tiles = torch.empty((num_tiles, p, c), dtype=torch.float32, device=dev)
+        tiles = torch.empty((num_tiles, p, ci), dtype=torch.float32, device=dev)
         final_t = torch.empty((num_tiles, p), dtype=torch.float32, device=dev)
         n_contrib = torch.empty((num_tiles, p), dtype=torch.int32, device=dev)
         self._launch(
-            c, num_tiles, dev,
+            ci, num_tiles, dev,
             gauss_s.data_ptr(), tile_starts.data_ptr(), table.data_ptr(), bg.data_ptr(),
             tiles.data_ptr(), final_t.data_ptr(), n_contrib.data_ptr(),
-            num_tiles, grid_x, tile_size,
+            num_tiles, grid_x, tile_size, instance=instance_name(c, tile_size),
         )
+        if ci != c:
+            tiles = tiles[..., :c].contiguous()
         return tiles, final_t, n_contrib
 
 
@@ -250,7 +293,7 @@ class BackwardKernel(_CudaKernel):
                    "g_tiles": g_tiles, "g_final_t": g_final_t, "tiles": tiles,
                    "final_t": final_t}
         self._check(tensors, _RANKS, table.device)
-        c = self._channels(table, bg, tile_size)
+        c, ci = self._channels(table, bg, tile_size)
         p = tile_size * tile_size
         num_tiles = tile_starts.shape[0] - 1
         for name, shape in (("g_tiles", (num_tiles, p, c)), ("tiles", (num_tiles, p, c)),
@@ -260,14 +303,18 @@ class BackwardKernel(_CudaKernel):
                     f"{self.name} kernel: {name} shape {tuple(tensors[name].shape)}, "
                     f"needs {shape}"
                 )
+        if ci != c:
+            table, bg = _pad_channels(table, 6 + ci), _pad_channels(bg, ci)
+            g_tiles, tiles = _pad_channels(g_tiles, ci), _pad_channels(tiles, ci)
         d_table = torch.zeros_like(table)
         self._launch(
-            c, num_tiles, table.device,
+            ci, num_tiles, table.device,
             gauss_s.data_ptr(), tile_starts.data_ptr(), table.data_ptr(), bg.data_ptr(),
             g_tiles.data_ptr(), g_final_t.data_ptr(), tiles.data_ptr(), final_t.data_ptr(),
             d_table.data_ptr(), num_tiles, grid_x, tile_size,
+            instance=instance_name(c, tile_size),
         )
-        return d_table
+        return d_table[:, : 6 + c].contiguous() if ci != c else d_table
 
 
 FORWARD = ForwardKernel()

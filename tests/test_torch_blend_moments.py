@@ -198,3 +198,21 @@ def test_kernel_libraries_are_named_by_source_headers_and_flags(tmp_path):
     after = [blend_cuda.build_digest(source, flags) for source in sources]
     assert before[0] != after[0] and before[1] != after[1]
     assert blend_cuda.build_digest(sources[0], (*flags, "-DNDEBUG")) != after[0]
+
+
+@pytest.mark.parametrize("c, tile_size, name", [
+    (3, 16, "C=3"), (5, 8, "C=5"), (1, 16, "C=8"), (6, 16, "C=8"), (9, 16, "C=16"),
+    (24, 8, "C=24"), (32, 16, "C=32"), (3, 32, "C=3,32x32"), (6, 32, "C=8,32x32"),
+    (32, 32, "C=32,32x32"),
+])
+def test_instance_names_count_launches_by_instance(c, tile_size, name):
+    """A launch is counted under the instance that runs it: C rounded up to
+    the next instance (the zero-padded columns), and the tile size where it
+    is 32 (four blocks a tile), as ``chip_smoke.py`` names its entries."""
+    assert blend_cuda.instance_name(c, tile_size) == name
+    assert int(name.split(",")[0][2:]) == blend_cuda.instance_channels(c)
+
+
+def test_more_than_32_channels_have_no_instance():
+    with pytest.raises(ValueError, match="1..32 channels"):
+        blend_cuda.instance_name(33, 16)

@@ -67,6 +67,16 @@ def _assert_cols_close(got, want, tol=2e-4):
     torch.testing.assert_close(got / scale, want / scale, atol=tol, rtol=0)
 
 
+def _assert_bg_close(got, want, terms, tol=2e-4):
+    """d_bg = Σ g·T within ``tol`` of the size of its terms, ``terms`` =
+    ``chip_smoke.bg_terms``: the sum can cancel to a small fraction of them,
+    where two float32 summation orders differ by more than a fraction of the
+    sum itself."""
+    scale = terms.cpu().double() + 1e-6
+    torch.testing.assert_close(got.cpu().double() / scale, want.double() / scale, atol=tol,
+                               rtol=0)
+
+
 def _assert_close(got, want):
     got = [x.cpu() for x in got]
     torch.testing.assert_close(got[0], want.tiles, atol=1e-4, rtol=0)
@@ -74,9 +84,12 @@ def _assert_close(got, want):
     assert torch.equal(got[2], want.n_contrib)
 
 
-# 96×64 pixels as 16×16 tiles (8 warps a block) and as 8×8 tiles (2 warps).
-GRIDS = {16: (6, 4, 16), 8: (12, 8, 8)}
-C_AND_TILE = [(3, 16), (4, 16), (5, 16), (32, 16), (3, 8), (32, 8)]
+# 96×64 pixels as 16×16 tiles (8 warps a block), as 8×8 tiles (2 warps) and
+# as 32×32 tiles (four blocks of 8 warps a tile).  C = 6, 16 and 24 run
+# through the instances for 8, 16 and 24 (6 on zero-padded columns).
+GRIDS = {16: (6, 4, 16), 8: (12, 8, 8), 32: (3, 2, 32)}
+C_AND_TILE = [(3, 16), (4, 16), (5, 16), (32, 16), (3, 8), (32, 8),
+              (6, 16), (16, 16), (24, 16), (3, 32), (32, 32)]
 
 
 @pytest.mark.cuda
@@ -95,10 +108,17 @@ def test_kernel_matches_plain(cuda, c, tile_size):
     want = tblend.blend(gauss_s.clamp_max(n - 1), tile_s, starts, *fields, s["bg"], *grid)
     table = torch.cat([fields[0], fields[1], fields[2][:, None], fields[3]], 1)
     before = blend_cuda.FORWARD.launches
+    instance = blend_cuda.FORWARD.launches_by_channels[blend_cuda.instance_channels(c)]
+    name = blend_cuda.instance_name(c, tile_size)
+    by_name = blend_cuda.FORWARD.launches_by_instance.get(name, 0)
     got = blend_cuda.FORWARD(gauss_s.to(cuda), starts.to(cuda), table.to(cuda),
                              s["bg"].to(cuda), grid[0], grid[2])
     torch.cuda.synchronize()
     assert blend_cuda.FORWARD.launches == before + 1
+    assert blend_cuda.FORWARD.launches_by_channels[
+        blend_cuda.instance_channels(c)] == instance + 1
+    assert blend_cuda.FORWARD.launches_by_instance[name] == by_name + 1
+    assert got[0].shape == want.tiles.shape
     assert int(want.n_contrib.max()) > 5
     _assert_close(got, want)
 
@@ -126,16 +146,23 @@ def test_rasterize_on_card_matches_cpu(cuda, with_depth):
 
 @pytest.mark.cuda
 def test_kernel_refuses_what_it_cannot_run(cuda):
-    camera, s = scene(3, n=60, c=6)
+    """More than 32 channels, and tiles other than 8, 16 and 32, raise on
+    the card; nothing falls back to the plain version."""
+    camera, s = scene(3, n=60, c=33)
     d = {k: v.to(cuda) for k, v in s.items()}
-    with pytest.raises(ValueError, match="C=6"):
+    with pytest.raises(ValueError, match="at most 32 channels, got C=33"):
         rasterize(d["means"], d["opac"], camera, colors=d["colors"], scales=d["scales"],
                   rotations=d["quats"], config=RasterConfig(capacity=1 << 12))
-    gauss_s, _, starts, table = _binned(s, camera, 6)
-    g = torch.zeros((24, 256, 6))
-    with pytest.raises(ValueError, match="C=6"):
+    gauss_s, _, starts, table = _binned(s, camera, 33)
+    g = torch.zeros((24, 256, 33))
+    with pytest.raises(ValueError, match="at most 32 channels, got C=33"):
         blend_cuda.BACKWARD(*(x.to(cuda).contiguous() for x in (
             gauss_s, starts, table, s["bg"], g, g[..., 0], g, g[..., 0])), 6, 16)
+    camera, s = scene(3, n=60, c=3)
+    d = {k: v.to(cuda) for k, v in s.items()}
+    with pytest.raises(ValueError, match="tile_size 12 unsupported"):
+        rasterize(d["means"], d["opac"], camera, colors=d["colors"], scales=d["scales"],
+                  rotations=d["quats"], config=RasterConfig(capacity=1 << 12, tile_size=12))
 
 
 @pytest.mark.cuda
@@ -170,14 +197,19 @@ def test_backward_kernel_matches_plain(cuda, c, tile_size):
                                            g_final_t, grid)
     dev = [x.to(cuda) for x in (gauss_s, starts, table, s["bg"])]
     tiles, final_t, _ = blend_cuda.FORWARD(*dev, grid[0], tile_size)
-    before = blend_cuda.BACKWARD.launches_by_channels[c]
+    instance = blend_cuda.instance_channels(c)
+    before = blend_cuda.BACKWARD.launches_by_channels[instance]
+    name = blend_cuda.instance_name(c, tile_size)
+    by_name = blend_cuda.BACKWARD.launches_by_instance.get(name, 0)
     got = blend_cuda.blend_backward(*dev, tiles, final_t, g_tiles.to(cuda),
                                     g_final_t.to(cuda), grid[0], tile_size)
     torch.cuda.synchronize()
-    assert blend_cuda.BACKWARD.launches_by_channels[c] == before + 1
+    assert blend_cuda.BACKWARD.launches_by_channels[instance] == before + 1
+    assert blend_cuda.BACKWARD.launches_by_instance[name] == by_name + 1
+    assert got[0].shape == want[0].shape
     assert want[0][:, :6].abs().amax(dim=0).min() > 0
     _assert_cols_close(got[0], want[0])
-    _assert_cols_close(got[1][None], want[1][None])
+    _assert_bg_close(got[1], want[1], chip_smoke.bg_terms(g_tiles, final_t.cpu()))
 
 
 @pytest.mark.cuda
@@ -243,12 +275,13 @@ def test_backward_kernel_at_range_edges(cuda, c, tile_size, opaque):
                                   g_final_t.to(cuda))
     torch.cuda.synchronize()
     _assert_cols_close(got[0], want[0])
-    _assert_cols_close(got[1][None], want[1][None])
+    _assert_bg_close(got[1], want[1], got[2])
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("opaque", [False, True])
-@pytest.mark.parametrize("c, tile_size", [(3, 16), (32, 16), (3, 8), (32, 8)])
+@pytest.mark.parametrize("c, tile_size", [(3, 16), (32, 16), (3, 8), (32, 8), (16, 16),
+                                         (3, 32), (32, 32)])
 def test_forward_and_backward_include_the_same_pairs(cuda, c, tile_size, opaque):
     """Under an all-ones color cotangent a Gaussian's color gradient is the
     sum of its weights over the pixels that included it: nonzero exactly for
@@ -264,7 +297,7 @@ def test_forward_and_backward_include_the_same_pairs(cuda, c, tile_size, opaque)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tile_size", [16, 8])
+@pytest.mark.parametrize("tile_size", [16, 8, 32])
 @pytest.mark.parametrize("opacity", [0.5, 0.001])
 @pytest.mark.parametrize("nan_column", [0, 2, 3])
 def test_nan_power_is_skipped_as_jax_does(cuda, nan_column, opacity, tile_size):
@@ -279,7 +312,8 @@ def test_nan_power_is_skipped_as_jax_does(cuda, nan_column, opacity, tile_size):
     row = [3.0, 5.0, 0.02, 0.0, 0.02, opacity, 0.2, 0.4, 0.6]
     row[nan_column] = float("nan")
     # Behind it a sound splat that reaches every pixel of the tile.
-    table = torch.tensor([row, [4.0, 4.0, 0.01, 0.0, 0.01, 0.6, 0.9, 0.1, 0.3]])
+    conic = 0.01 if tile_size < 32 else 0.002
+    table = torch.tensor([row, [4.0, 4.0, conic, 0.0, conic, 0.6, 0.9, 0.1, 0.3]])
     gauss_s = torch.tensor([0, 1], dtype=torch.int64)
     starts = torch.tensor([0, 2], dtype=torch.int32)
     want = tblend.blend(gauss_s, torch.zeros(2, dtype=torch.int64), starts, table[:, 0:2],
@@ -301,7 +335,7 @@ def test_nan_power_is_skipped_as_jax_does(cuda, nan_column, opacity, tile_size):
     assert torch.equal(d_table[0].cpu(), torch.zeros(9))
     assert torch.equal(want_d[0, 6:], torch.zeros(3))
     _assert_cols_close(d_table[1:], want_d[1:])
-    _assert_cols_close(d_bg[None], want_bg[None])
+    _assert_bg_close(d_bg, want_bg, chip_smoke.bg_terms(g_tiles, got[1].cpu()))
 
 
 # --------------------------------------------------------------------------
@@ -396,3 +430,192 @@ def test_contrastive_step_on_card_matches_cpu(cuda, smooth_type):
         scale = ga.abs().max()
         assert float(scale) > 0
         assert float((gb.cpu() - ga).abs().max()) <= 2e-4 * float(scale)
+
+
+# --------------------------------------------------------------------------
+# The interactive session and the query layer on the card against the CPU
+# --------------------------------------------------------------------------
+
+
+def _session(device, feature_dim, seed=0, n=300, cap=384):
+    """A seeded SagaSession on ``device``: features by the side of the scene
+    a point is on, plus noise; a K = 8 neighbour map made on the CPU."""
+    from seganygaussians_torch.models import feature_gaussians as fgm
+    from seganygaussians_torch.models import gaussians as gm
+    from seganygaussians_torch.ops.knn import knn_map
+    from seganygaussians_torch.ops.quantile import fit_quantile_transform
+    from seganygaussians_torch.seg.scale_gate import ScaleGateParams
+    from seganygaussians_torch.viewer.interactive import SagaSession
+
+    rng = np.random.default_rng(seed)
+    xyz = rng.normal(scale=0.4, size=(n, 3))
+    xyz[:, 2] += 3.0
+    dirs = rng.normal(size=(3, feature_dim))
+    group = (xyz[:, 0] > 0).astype(int) + (xyz[:, 1] > 0.1)
+    a = {k: torch.tensor(v, dtype=torch.float32) for k, v in dict(
+        xyz=xyz, features_dc=rng.normal(0, 0.8, (n, 1, 3)), features_rest=rng.normal(0, 0.2, (n, 3, 3)),
+        scaling=np.log(rng.uniform(0.03, 0.1, (n, 3))), rotation=rng.normal(size=(n, 4)),
+        opacity=rng.normal(1.0, 1.0, (n, 1)),
+        features=dirs[group] + 0.5 * rng.normal(size=(n, feature_dim))).items()}
+    smooth_map = torch.cat([torch.arange(n)[:, None], knn_map(a["xyz"], 7)], 1)
+    gate = ScaleGateParams(torch.tensor(rng.normal(0, 0.5, (1, feature_dim)), dtype=torch.float32),
+                           torch.tensor(rng.normal(1.5, 0.5, feature_dim), dtype=torch.float32))
+    state = gm.from_dense(*(a[k].numpy() for k in ("xyz", "features_dc", "features_rest",
+                                                     "scaling", "rotation", "opacity")),
+                          capacity=cap, device=device)
+    fs = fgm.FeatureState(
+        geom=fgm.FrozenGeometry(xyz=a["xyz"].to(device), scaling=a["scaling"].to(device),
+                                rotation=a["rotation"].to(device), opacity=a["opacity"].to(device),
+                                alive=torch.ones(n, dtype=torch.bool, device=device)),
+        point_features=a["features"].to(device), smooth_map=smooth_map.to(device), opt=None)
+    s = SagaSession(state, fs, ScaleGateParams(gate.w.to(device), gate.b.to(device)),
+                    fit_quantile_transform(torch.tensor(rng.uniform(0.5, 3.0, 50),
+                                                        dtype=torch.float32, device=device)),
+                    config=RasterConfig(capacity=1 << 15))
+    s.orbit.width, s.orbit.height, s.orbit.radius = 96, 64, 3.0
+    return s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feature_dim", [16, 32])
+def test_session_on_card_matches_cpu(cuda, feature_dim):
+    """One session on the card (the forward kernel at C = 3 and at
+    C = feature_dim) and on the CPU (the plain blend): frames and feature
+    maps to the kernel's 1e-4, the prompt and the score map to 1e-4, the 3D
+    mask equal away from the threshold, undo exact, cluster labels equal
+    away from ties with the same subsample and centers.  The PCA preview to
+    1e-3 up to sign: an SVD of maps that differ by 1e-4."""
+    cpu, card = _session(torch.device("cpu"), feature_dim), _session(cuda, feature_dim)
+    fwd = dict(blend_cuda.FORWARD.launches_by_channels)
+    np.testing.assert_allclose(card.render_rgb(), cpu.render_rgb(), atol=1e-4, rtol=0)
+    fmap_cpu = cpu.render_feature_map()
+    torch.testing.assert_close(card.render_feature_map().cpu(), fmap_cpu, atol=1e-4, rtol=0)
+    pca_cpu, pca_card = cpu.render_pca(), card.render_pca()
+    for c in range(3):
+        err = min(np.abs(pca_card[..., c] - pca_cpu[..., c]).max(),
+                  np.abs(pca_card[..., c] - 1 + pca_cpu[..., c]).max())
+        assert err <= 1e-3, (c, err)
+    norm = fmap_cpu.norm(dim=-1)
+    y, x = (int(v) for v in torch.nonzero(norm == norm.max())[0])
+    for s in (cpu, card):
+        s.click(x, y)
+    torch.testing.assert_close(card.chosen_features[0].cpu(), cpu.chosen_features[0],
+                               atol=1e-4, rtol=0)
+    np.testing.assert_allclose(card.render_similarity(), cpu.render_similarity(), atol=1e-4,
+                               rtol=0)
+    torch.cuda.synchronize()
+    launched = {k: v - fwd[k] for k, v in blend_cuda.FORWARD.launches_by_channels.items()}
+    assert launched[3] == 1 and launched[blend_cuda.instance_channels(feature_dim)] == 4
+
+    from seganygaussians_torch.models import feature_gaussians as fgm
+    from seganygaussians_torch.seg import queries
+
+    gated = queries.gate_features(fgm.smoothed_point_features(cpu.feature_state), cpu.gate,
+                                  cpu.scale)
+    score = queries.similarity_to_prompts(gated, torch.stack(cpu.chosen_features)).numpy()
+    live = np.sort(score)
+    mid = slice(len(live) // 4, 3 * len(live) // 4)
+    i = int(np.argmax(np.diff(live[mid]))) + mid.start
+    cpu.threshold = card.threshold = float(0.5 * (live[i] + live[i + 1]))
+    before = card.scene_state.alive.clone()
+    got, want = card.segment3d().cpu().numpy(), cpu.segment3d().numpy()
+    far = np.concatenate([np.abs(score - cpu.threshold) > 1e-4, np.ones(84, bool)])
+    np.testing.assert_array_equal(got[far], want[far])
+    assert 0 < want.sum() < 300
+    for s in (cpu, card):
+        s.roll_back()
+    assert torch.equal(card.scene_state.alive, before)
+
+    idx = torch.tensor(np.random.default_rng(1).choice(300, 16, replace=False))
+    init = gated[idx[:4]]
+    cpu.cluster_in_3d(k=4, indices=idx, init_centers=init)
+    card.cluster_in_3d(k=4, indices=idx, init_centers=init.to(cuda))
+    torch.testing.assert_close(card.cluster_centers.cpu(), cpu.cluster_centers, atol=1e-4,
+                               rtol=0)
+    palette = np.eye(4, 3)
+    a, b = card.render_cluster(palette=palette), cpu.render_cluster(palette=palette)
+    assert (a == b).all(axis=-1).mean() > 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("factor", [1, 2, 2.6, 4, 0.5])
+def test_resize_and_erosion_on_card_match_cpu(cuda, factor):
+    """``resize_bilinear`` (``antialias=True``, another implementation on
+    CUDA) at the CPU test's factors, to 1e-5; the erosion equal wherever the
+    window sum lies more than 1e-5 from 2."""
+    from seganygaussians_torch.preprocess import box_sum_3x3
+    from seganygaussians_torch.seg import language
+
+    rng = np.random.default_rng(3)
+    h, w = 52, 84
+    out = (int(h / factor), int(w / factor))
+    ys, xs = np.mgrid[:h, :w]
+    masks = np.stack([(xs - rng.uniform(0, w)) ** 2 + (ys - rng.uniform(0, h)) ** 2
+                      < rng.uniform(100, 600) for _ in range(4)]).astype(np.float32)
+    fmap = rng.normal(size=(32, h, w)).astype(np.float32)
+    for x in (masks, fmap):
+        torch.testing.assert_close(language.resize_bilinear(torch.tensor(x).to(cuda), out).cpu(),
+                                   language.resize_bilinear(torch.tensor(x), out),
+                                   atol=1e-5, rtol=0)
+    window = box_sum_3x3(language.resize_bilinear(torch.tensor(masks), out))
+    far = (window - 2.0).abs() > 1e-5
+    got = language.erode_masks(torch.tensor(masks).to(cuda), out).cpu()
+    assert torch.equal(got[far], language.erode_masks(torch.tensor(masks), out)[far])
+
+
+@pytest.mark.cuda
+def test_segment3d_and_text_segment_on_card_match_cpu(cuda):
+    """``queries.segment3d`` and one ``language.text_segment`` (given
+    anchors) on the card against the CPU: equal masks away from the
+    thresholds, equal cluster labels."""
+    from seganygaussians_torch.ops.quantile import fit_quantile_transform
+    from seganygaussians_torch.seg import language, queries
+    from seganygaussians_torch.seg.scale_gate import ScaleGateParams
+
+    rng = np.random.default_rng(4)
+    n, d, h, w = 400, 32, 30, 45
+    dirs = rng.normal(size=(3, d))
+    obj = rng.integers(0, 3, n)
+    feats = torch.tensor(dirs[obj] + 0.35 * rng.normal(size=(n, d)), dtype=torch.float32)
+    gate = ScaleGateParams(torch.tensor(rng.normal(0, 0.5, (1, d)), dtype=torch.float32),
+                           torch.tensor(rng.normal(1.5, 0.5, d), dtype=torch.float32))
+    prompts = feats[[3, 50]] + 0.1
+
+    def on(dev):
+        return (feats.to(dev), ScaleGateParams(gate.w.to(dev), gate.b.to(dev)))
+
+    gated = queries.gate_features(feats, gate, 0.4)
+    score = queries.similarity_to_prompts(gated, queries.normalize(prompts))
+    far = (score - 0.75).abs() > 1e-5
+    masks = {str(dev): queries.segment3d(*on(dev), 0.4, prompts.to(dev), 0.75).cpu()
+             for dev in ("cpu", cuda)}
+    assert torch.equal(masks[str(cuda)][far], masks["cpu"][far])
+
+    class View:
+        pass
+
+    views = []
+    for v in range(3):
+        band = np.repeat(rng.permutation(3), w // 3 + 1)[:w]
+        fmap = dirs[band][None].repeat(h, 0) + 0.3 * rng.normal(size=(h, w, d))
+        view = View()
+        view.fmap = (fmap / np.linalg.norm(fmap, axis=-1, keepdims=True)).astype(np.float32)
+        view.sam_masks = np.stack([np.broadcast_to(band == o, (h, w)) for o in range(3)]
+                                  + [np.ones((h, w), bool)])
+        view.mask_scales = np.array([0.5, 0.6, 0.7, 2.0], np.float32)
+        view.clip_features = np.eye(4, 8, dtype=np.float32) + 0.05 * rng.normal(size=(4, 8))
+        views.append(view)
+    qt = fit_quantile_transform(torch.tensor(np.concatenate([v.mask_scales for v in views])))
+    anchors = torch.tensor(rng.choice(n, 20, replace=False))
+    res = {}
+    for dev in ("cpu", cuda):
+        f, g = on(dev)
+        res[str(dev)] = language.text_segment(
+            lambda v: torch.tensor(v.fmap, device=dev), views, f, g,
+            qt._replace(quantiles=qt.quantiles.to(dev)), lambda e: np.asarray(e)[:, 1],
+            anchor_indices=anchors, min_cluster_size=2, downsample=2)
+    a, b = res[str(cuda)], res["cpu"]
+    np.testing.assert_array_equal(a.labels, b.labels)
+    np.testing.assert_allclose(a.scores, b.scores, atol=1e-6, rtol=0)
+    assert torch.equal(a.mask3d.cpu(), b.mask3d)
+    assert 0 < int(b.mask3d.sum()) < n

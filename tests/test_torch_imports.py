@@ -33,7 +33,9 @@ def test_port_imports_no_jax():
                    "cli.train_contrastive_feature", "tools.bench_scan_variants",
                    "utils.precision", "seg.queries", "seg.clustering", "seg.clip_text",
                    "seg.language", "seg.clip_image", "cli.prompt_segment",
-                   "cli.get_clip_features", "cli.extract_segment_everything_masks"):
+                   "cli.get_clip_features", "cli.extract_segment_everything_masks",
+                   "viewer", "viewer.interactive", "viewer.network_gui", "viewer.web_gui",
+                   "cli.gui"):
         assert f"seganygaussians_torch.{module}" in names, module
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = os.path.abspath(ROOT)
@@ -42,7 +44,7 @@ def test_port_imports_no_jax():
         capture_output=True, text=True, env=env, cwd=ROOT, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) == len(names) >= 44
+    assert int(proc.stdout.strip()) == len(names) >= 49
 
 
 def test_chip_smoke_imports_no_jax():
