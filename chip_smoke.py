@@ -6,8 +6,9 @@ one NVIDIA GPU.
 
 Builds the forward-blend, backward-blend and scan-variants kernels from
 ``seganygaussians_torch/csrc`` (one ``nvcc`` each, started together) and runs
-twelve phases, each of which raises on failure (phases 10 and 12 run after
-phase 8, on its feature field, and before phase 9):
+fourteen phases, each of which raises on failure (phases 10, 12, 13 and 14
+run after phase 8, on its feature field and phase 2's scene, and before
+phase 9):
 
 1. Kernel against its plain version (``ops/blend.py``) on the same CUDA
    inputs: ~2000 Gaussians at 256×192, C ∈ {3, 4, 5, 32}, the padded counts
@@ -118,11 +119,35 @@ phase 8, on its feature field, and before phase 9):
    restores ``alive`` exactly, the SIBR reply's bytes are ``render_view``'s,
    and sessions at C = 6, 16 and 24 (the first C feature columns, a seeded
    C-wide gate) are within 1e-4 of the plain blend on 64 tiles.
+13. The raster plans on phase 2's scene at 1297×840, 16×16 tiles: an RGB
+   (SH 3) and a C = 32 frame through ``rasterize`` with per-row footprints
+   (``row_footprints``) and with the sort-free plan (``cuda_sortfree``),
+   each against the default plan's frame (color and final_t 1e-4, n_contrib
+   exact), median device ms of 8 orbit views and peak memory beside the
+   default plan's; the instance counts with and without rows; the sort-free
+   plan's order and ranges equal to the sort's on every instance; one
+   gradient through each plan (one launch each); the sort-free plan's
+   instances through both kernels against the plain versions on 64 seeded
+   tiles.  Then C = 64: a feature frame and its gradient run as two
+   launches of the C = 32 instance each, held to the plain versions on 64
+   tiles (16 at a time), with kernel times and bounds.
+14. The parallel layer (``parallel/``): the scene data-parallel step with
+   two cameras run as two ranks in turn (``mesh.run_in_turn``) against the
+   sequential mean-gradient Adam step (``xyz`` within 1e-6; coordinates
+   whose gradient is within 2e-4 of its column's max of 0 may move the
+   other way: the atomics' rounding decides their sign), the contrastive
+   step at (data, ray) = (2, 1) and (1, 2) against the single-camera steps
+   on the same draws (gradients 1e-6 + 1e-4 of their largest value), the
+   tile-sharded render (2e-5) and loss gradient (1e-6) with two slabs
+   against the whole frame; then a real NCCL process group of one rank and
+   ten ``make_dp_train_step``s on it (median device ms).  Every step's
+   kernel launches are counted.
 
 The second-to-last line of output is a JSON object describing the kernels
 (times, bound, and each instance's launches over its main-path window:
-phases 2 and 12 for the forward, 5 for the backward; the script fails if
-one is 0); the last is
+phases 2 and 12 for the forward, 5 for the backward, 13 for C = 64, with
+the launches on phases 13-14's paths beside them; the script fails if one
+is 0); the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without CUDA, or without the package beside this file, it exits non-zero
 before printing a result.
@@ -152,6 +177,9 @@ PEAK_FP32_PER_S = 67e12
 TOL_COLOR, TOL_FINAL_T, TOL_GRAD = 1e-4, 5e-5, 2e-4
 N_FULL, W_FULL, H_FULL, SH_DEGREE, N_CAMS = 3_000_000, 1297, 840, 3, 8
 N_SUBSET_TILES = 64
+# Phase 14's scene DP step: the most xyz coordinates whose gradient is within
+# float32 rounding of 0 that may move the other way from the sequential step.
+MAX_LEFT_OUT = 100
 N_TRAIN_STEPS, N_TRAIN_VIEWS = 10, 4
 # scripts/run_synth_e2e.sh stage 1, flag for flag.
 SYNTH_E2E_FLAGS = [
@@ -253,14 +281,16 @@ def orbit_cameras(count, width, height, distance=2.6, fovy=0.9):
     ]
 
 
-def blend_inputs(xyz, opacity, scales, rotations, colors, camera, capacity, bg, tile_size=16):
+def blend_inputs(xyz, opacity, scales, rotations, colors, camera, capacity, bg, tile_size=16,
+                 row_footprints=False):
     """The rasterizer's inputs to the blend, built by the same public
-    functions ``ops/rasterize.py`` calls."""
+    functions ``ops/rasterize.py`` calls (with ``row_footprints``, the
+    row-footprint plan's instances)."""
     from seganygaussians_torch.ops.binning import expand_slots, sort_instances
     from seganygaussians_torch.ops.projection import preprocess
 
     prep = preprocess(xyz, camera, scales=scales, rotations=rotations,
-                      tile_size=tile_size, opacities=opacity)
+                      tile_size=tile_size, opacities=opacity, row_footprints=row_footprints)
     grid_x = (camera.width + tile_size - 1) // tile_size
     grid_y = (camera.height + tile_size - 1) // tile_size
     plan = expand_slots(prep, grid_x, grid_y, capacity)
@@ -309,6 +339,13 @@ def subset(d, tiles):
     counts[tiles] = hi - lo
     sub_starts = torch.cat([starts[:1] * 0, torch.cumsum(counts, 0)]).to(torch.int32)
     return d["gauss_s"][idx].contiguous(), d["tile_s"][idx], sub_starts
+
+
+def seeded_tiles(d, count, seed):
+    """``count`` seeded non-empty tiles of a frame, ascending."""
+    nonempty = torch.nonzero(d["tile_starts"][1:] > d["tile_starts"][:-1]).flatten().cpu()
+    pick = torch.randperm(nonempty.numel(), generator=torch.Generator().manual_seed(seed))
+    return nonempty[pick[:count]].sort().values
 
 
 # Range lengths around the kernels' inner edges: the 4-instance groups, the
@@ -681,9 +718,7 @@ def phase_full(device, card, small_errors):
                              torch.zeros(c, device=device), tile_size=ts)
             out = run_kernel(d)
             kernel_ms = float(np.median(cuda_time_ms(lambda: run_kernel(d), warmup=2, iters=10)))
-            nonempty = torch.nonzero(d["tile_starts"][1:] > d["tile_starts"][:-1]).flatten().cpu()
-            pick = torch.randperm(nonempty.numel(), generator=torch.Generator().manual_seed(c))
-            tiles = nonempty[pick[:N_SUBSET_TILES if ts == 16 else 4]].sort().values
+            tiles = seeded_tiles(d, N_SUBSET_TILES if ts == 16 else 4, c)
             sub = subset(d, tiles)
             plain = run_plain(d, *sub)
             torch.cuda.synchronize()
@@ -822,6 +857,15 @@ def grad_errors(got, want) -> tuple[float, float]:
         worst_rel = max(worst_rel, float(((a - b).abs() / scale).max()))
         worst_abs = max(worst_abs, float((a - b).abs().max()))
     return worst_rel, worst_abs
+
+
+def column_error(got, want) -> float:
+    """Largest |got − want| of two gradients of one tensor over the largest
+    |want| of its column (plus grad_errors' 1e-6)."""
+    g, w = got.reshape(got.shape[0], -1), want.reshape(want.shape[0], -1)
+    if w.numel() == 0:
+        return 0.0
+    return float(((g - w).abs() / (w.abs().amax(dim=0) + 1e-6)).max())
 
 
 def compare_grads(got, want) -> float:
@@ -1976,9 +2020,7 @@ def phase_queries(device, card, fs, gate, s, capacity) -> dict:
         grid_x, grid_y, ts = d["grid"]
         g_tiles = torch.zeros((grid_x * grid_y, ts * ts, 3), device=device)
         g_tiles[..., 0] = -to_tiles(score_maps[0], grid_x, grid_y, ts)
-        nonempty = torch.nonzero(d["tile_starts"][1:] > d["tile_starts"][:-1]).flatten().cpu()
-        pick = torch.randperm(nonempty.numel(), generator=torch.Generator().manual_seed(34))
-        tiles = nonempty[pick[:N_SUBSET_TILES]].sort().values
+        tiles = seeded_tiles(d, N_SUBSET_TILES, 34)
         g_sub = torch.zeros_like(g_tiles)
         g_sub[tiles.to(device)] = g_tiles[tiles.to(device)]
         sub = subset(d, tiles)
@@ -2405,9 +2447,7 @@ def phase_session(device, card, s, fs, gate, capacity) -> dict:
                          fgm.get_rotation(geom), session_c._gated_gaussian_features(),
                          session_c.orbit.params(), capacity, torch.zeros(c, device=device))
         grid_x, grid_y, ts = d["grid"]
-        nonempty = torch.nonzero(d["tile_starts"][1:] > d["tile_starts"][:-1]).flatten().cpu()
-        pick = torch.randperm(nonempty.numel(), generator=torch.Generator().manual_seed(c))
-        tiles = nonempty[pick[:N_SUBSET_TILES]].sort().values
+        tiles = seeded_tiles(d, N_SUBSET_TILES, c)
         plain = run_plain(d, *subset(d, tiles))
         got, inside = image_tiles(fmap_c, grid_x, grid_y, ts)
         rows = tiles.to(device)
@@ -2437,6 +2477,460 @@ def phase_session(device, card, s, fs, gate, capacity) -> dict:
           + f"; forward launches by instance {launches} for the renders issued {issued}; peak "
           f"memory over the phase {peak_gb:.2f} GB  [{card}]")
     return {"launches": launches, "pixel_err": pixel_err, "narrow_err": max(narrow_err.values())}
+
+
+def plain_chunks(d, tiles, g_tiles, g_final_t, chunk):
+    """The forward and backward of the kernels against the plain versions on
+    ``tiles``, ``chunk`` tiles at a time (tiles are independent, and the
+    plain version's (instances, pixels, C) arrays bound what fits): returns
+    (largest forward difference, largest backward difference, plain ms of
+    the forward and of the backward, each summed over the chunks)."""
+    out = run_kernel(d)
+    err_f = err_b = plain_f = plain_b = 0.0
+    for i in range(0, len(tiles), chunk):
+        part = tiles[i:i + chunk]
+        sub = subset(d, part)
+        plain, ms, _ = timed_call(lambda: run_plain(d, *sub))
+        err_f = max(err_f, compare(out, plain, rows=part.to(d["table"].device)))
+        del plain
+        got = run_backward(d, sub[0], sub[2], g_tiles, g_final_t)
+        want, ms_b, _ = timed_call(lambda: run_backward_plain(d, sub[0], sub[2], g_tiles,
+                                                              g_final_t))
+        err_b = max(err_b, compare_grads(got, want))
+        plain_f, plain_b = plain_f + ms, plain_b + ms_b
+        del got, want
+        torch.cuda.empty_cache()
+    return err_f, err_b, plain_f, plain_b
+
+
+def phase_plans(device, card, s, capacity) -> tuple[list, dict]:
+    """Phase 13: the row-footprint and sort-free raster plans and C = 64 at
+    full width on phase 2's scene.  Returns the C = 64 kernel entries and
+    the kernels' launches by instance on each plan's main-path window."""
+    from seganygaussians_torch.models import gaussians as gm
+    from seganygaussians_torch.ops import blend_cuda
+    from seganygaussians_torch.ops.binning import (
+        expand_slots, plan_instances, sort_instances, strip_row_footprints)
+    from seganygaussians_torch.ops.blend_cuda import BACKWARD, FORWARD
+    from seganygaussians_torch.ops.projection import preprocess
+    from seganygaussians_torch.ops.rasterize import RasterConfig, rasterize
+
+    keys = ("xyz", "features_dc", "features_rest", "scaling", "rotation", "opacity")
+    p = gm.from_dense(*(s[k].cpu().numpy() for k in keys), device=device).params
+    opa, scales, rots, shs = (gm.get_opacity(p)[:, 0], gm.get_scaling(p), gm.get_rotation(p),
+                              gm.get_shs(p))
+    g = torch.Generator(device=device).manual_seed(31)
+    feats = torch.randn(N_FULL, 64, generator=g, device=device)
+    cams = orbit_cameras(N_CAMS, W_FULL, H_FULL)
+    kinds = {"RGB": dict(shs=shs, sh_degree=SH_DEGREE, bg=torch.zeros(3, device=device)),
+             "C=32": dict(colors=feats[:, :32].contiguous(), bg=torch.zeros(32, device=device)),
+             "C=64": dict(colors=feats, bg=torch.zeros(64, device=device))}
+    plans = {"rect": {}, "rows": dict(row_footprints=True),
+             "sortfree": dict(backend="cuda_sortfree")}
+
+    def frame(cam, kind, plan):
+        out = rasterize(p.xyz, opa, cam, scales=scales, rotations=rots,
+                        config=RasterConfig(capacity=capacity, **plans[plan]), **kinds[kind])
+        check(not out.overflow, f"phase 13: the {kind} {plan} frame overflowed")
+        return out
+
+    results, launches = {}, {}
+    print(f"phase 13: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated at the start")
+    with torch.no_grad():
+        for kind in ("RGB", "C=32"):
+            for plan in plans:  # warm-up outside the counted windows
+                frame(cams[0], kind, plan)
+        prep_rows = preprocess(p.xyz, cams[0], scales=scales, rotations=rots, opacities=opa,
+                               row_footprints=True)
+        m_rows = int(prep_rows.tiles_touched.sum())
+        m_rect = int(strip_row_footprints(prep_rows).tiles_touched.sum())
+        # The sort-free plan's destinations are the sort's order.
+        grid_x, grid_y = (W_FULL + 15) // 16, (H_FULL + 15) // 16
+        rect = strip_row_footprints(prep_rows)
+        slots = expand_slots(rect, grid_x, grid_y, capacity)
+        gauss_s, _, starts = sort_instances(slots.slot_rank, slots.slot_tile, N_FULL,
+                                            grid_x * grid_y)
+        torch.cuda.reset_peak_memory_stats()
+        base_peak = torch.cuda.memory_allocated()
+        plan, plan_ms, _ = timed_call(lambda: plan_instances(rect, grid_x, grid_y, capacity))
+        plan_peak = torch.cuda.max_memory_allocated() - base_peak
+        m = slots.num_instances
+        check(torch.equal(plan.tile_starts, starts), "phase 13: sort-free tile_starts differ")
+        check(torch.equal(plan.sorted_gauss[:m], gauss_s[:m]),
+              "phase 13: sort-free instance order differs from the sort's")
+        del slots, gauss_s, starts, prep_rows, rect
+        print(f"phase 13: instances of view 0: rect {m_rect}, rows {m_rows} "
+              f"({m_rows / m_rect:.3f} of rect); plan_instances {plan_ms:.2f} ms, "
+              f"{plan_peak / 1e9:.2f} GB above the frame's inputs, order and ranges equal to "
+              f"the sort's on all {m} instances  [{card}]")
+        del plan
+
+        for kind in ("RGB", "C=32"):
+            ref = frame(cams[0], kind, "rect")
+            for plan in ("rows", "sortfree"):
+                out = frame(cams[0], kind, plan)
+                err = max(float((out.color - ref.color).abs().max()),
+                          float((out.final_t - ref.final_t).abs().max()))
+                check(err <= TOL_COLOR, f"phase 13: {kind} {plan} frame differs from the "
+                      f"rect frame by {err}")
+                check(torch.equal(out.n_contrib, ref.n_contrib),
+                      f"phase 13: {kind} {plan} n_contrib differs from the rect frame's")
+                results[(kind, plan, "err")] = err
+            for plan in plans:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                FORWARD.reset_counts()
+                ms = [timed_call(lambda: frame(cam, kind, plan))[1] for cam in cams]
+                launches[(kind, plan)] = dict(FORWARD.launches_by_instance)
+                results[(kind, plan, "ms")] = float(np.median(ms))
+                results[(kind, plan, "peak")] = torch.cuda.max_memory_allocated() / 1e9
+            del ref, out
+
+    # One gradient through each plan on view 1, the new plans' counted and
+    # held to the rect plan's: the instances the row-footprint plan drops
+    # have α < 1/255 on every pixel, and the sort-free plan's are the sort's,
+    # so only the atomics' order of addition differs.
+    grad_err = {}
+    for kind in ("RGB", "C=32"):
+        grads = {}
+        for plan in plans:
+            leaves = {"xyz": p.xyz.detach().requires_grad_(True),
+                      "opa": opa.detach().requires_grad_(True),
+                      "scales": scales.detach().requires_grad_(True),
+                      "rots": rots.detach().requires_grad_(True)}
+            kw = dict(kinds[kind])
+            field = "colors" if "colors" in kw else "shs"
+            kw[field] = leaves[field] = kw[field].detach().requires_grad_(True)
+            FORWARD.reset_counts()
+            BACKWARD.reset_counts()
+            out = rasterize(leaves["xyz"], leaves["opa"], cams[1], scales=leaves["scales"],
+                            rotations=leaves["rots"],
+                            config=RasterConfig(capacity=capacity, **plans[plan]), **kw)
+            (out.color.square().sum() + out.final_t.sum()).backward()
+            torch.cuda.synchronize()
+            grads[plan] = {name: x.grad for name, x in leaves.items()}
+            for name, g in grads[plan].items():
+                check(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0,
+                      f"phase 13: {kind} {plan} gradient of {name}")
+            check(BACKWARD.launches == 1 and FORWARD.launches == 1,
+                  f"phase 13: {kind} {plan} gradient launches {FORWARD.launches}, "
+                  f"{BACKWARD.launches}")
+            if plan != "rect":
+                launches[(kind, plan, "bwd")] = dict(BACKWARD.launches_by_instance)
+            del out, leaves
+        for plan in ("rows", "sortfree"):
+            grad_err[(kind, plan)] = err = max(
+                column_error(grads[plan][name], want) for name, want in grads["rect"].items())
+            check(err <= TOL_GRAD, f"phase 13: {kind} {plan} gradients differ from the rect "
+                  f"plan's by {err:.3g} of a column's max (tolerance {TOL_GRAD})")
+        del grads
+        torch.cuda.empty_cache()
+    print("phase 13: gradients of xyz, opacity, scale, rotation and colour (SH for RGB) on "
+          "view 1 against the rect plan's: " + ", ".join(
+              f"{kind} {plan} within {e:.3g}" for (kind, plan), e in grad_err.items())
+          + f" of a column's max (tolerance {TOL_GRAD})")
+
+    # Each new plan's own instances through both kernels, held to the plain
+    # version on 64 seeded tiles.
+    grid = ((W_FULL + 15) // 16, (H_FULL + 15) // 16, 16)
+    for kind, colors in (("RGB", None), ("C=32", feats[:, :32])):
+        _, _, center = cams[0].tensors(device)
+        if colors is None:
+            from seganygaussians_torch.ops.sh import eval_sh_color
+            colors = eval_sh_color(SH_DEGREE, shs, p.xyz, center)
+        c = colors.shape[1]
+        for plan in ("rows", "sortfree"):
+            d = blend_inputs(p.xyz, opa, scales, rots, colors.contiguous(), cams[0], capacity,
+                             torch.zeros(c, device=device), row_footprints=plan == "rows")
+            if plan == "sortfree":
+                prep = preprocess(p.xyz, cams[0], scales=scales, rotations=rots, opacities=opa)
+                order = plan_instances(prep, grid[0], grid[1], capacity)
+                m = d["num_instances"]
+                d["gauss_s"], d["tile_starts"] = order.sorted_gauss, order.tile_starts
+                d["tile_s"] = torch.repeat_interleave(
+                    torch.arange(grid[0] * grid[1], device=device),
+                    (order.tile_starts[1:] - order.tile_starts[:-1]).long())
+                d["gauss_s"][m:] = N_FULL
+                del prep, order
+            tiles = seeded_tiles(d, N_SUBSET_TILES, 40 + c)
+            g_tiles, g_final_t = grad_inputs(d, 500 + c)
+            torch.cuda.empty_cache()
+            err_f, err_b, _, _ = plain_chunks(d, tiles, g_tiles, g_final_t, N_SUBSET_TILES // 4)
+            print(f"phase 13: {kind} {plan} plan's {d['num_instances']} instances through both "
+                  f"kernels on {len(tiles)} seeded tiles: forward within {err_f:.3g}, backward "
+                  f"within {err_b:.3g} of the plain version (tolerances {TOL_COLOR}, {TOL_GRAD} "
+                  f"of a column's max)")
+            del d, g_tiles, g_final_t
+            torch.cuda.empty_cache()
+
+    # C = 64: two launches of the C = 32 instance a call, forward and backward.
+    leaves = feats.detach().requires_grad_(True)
+    FORWARD.reset_counts()
+    BACKWARD.reset_counts()
+    out, ms64, _ = timed_call(lambda: rasterize(
+        p.xyz, opa, cams[0], colors=leaves, scales=scales, rotations=rots,
+        bg=torch.zeros(64, device=device), config=RasterConfig(capacity=capacity)))
+    check(not out.overflow and out.color.shape == (H_FULL, W_FULL, 64), "C=64 frame")
+    out.color.square().sum().backward()
+    torch.cuda.synchronize()
+    launches[("C=64", "fwd")] = dict(FORWARD.launches_by_instance)
+    launches[("C=64", "bwd")] = dict(BACKWARD.launches_by_instance)
+    check(launches[("C=64", "fwd")] == {"C=32": 2} and launches[("C=64", "bwd")] == {"C=32": 2},
+          f"C=64 launches {launches[('C=64', 'fwd')]}, {launches[('C=64', 'bwd')]}")
+    check(bool(torch.isfinite(leaves.grad).all()), "C=64 gradient not finite")
+    del out, leaves
+    d = blend_inputs(p.xyz, opa, scales, rots, feats, cams[0], capacity,
+                     torch.zeros(64, device=device))
+    tiles = seeded_tiles(d, N_SUBSET_TILES, 64)
+    g_tiles, g_final_t = grad_inputs(d, 564)
+    err_f, err_b, plain_f, plain_b = plain_chunks(d, tiles, g_tiles, g_final_t,
+                                                  N_SUBSET_TILES // 4)
+    fwd_ms = float(np.median(cuda_time_ms(lambda: run_kernel(d), warmup=2, iters=10)))
+    res = run_kernel(d)
+    args = (d["gauss_s"], d["tile_starts"], d["table"], d["bg"], g_tiles, g_final_t, res[0],
+            res[1], d["grid"][0], 16)
+    bwd_ms = float(np.median(cuda_time_ms(lambda: BACKWARD(*args), warmup=2, iters=10)))
+    visited, included, _ = work_counts(d, res[2])
+    entries = []
+    for name, ms, plain_ms, (bound_ms, bound_by, _, _), err, src, line in (
+            ("blend_fwd[C=64]", fwd_ms, plain_f, bound(d, visited, included), err_f,
+             "blend_fwd.cu", 252),
+            ("blend_bwd[C=64]", bwd_ms, plain_b, bound_backward(d, visited, included), err_b,
+             "blend_bwd.cu", 397)):
+        side = "fwd" if name.startswith("blend_fwd") else "bwd"
+        entries.append({
+            "name": name, "route": "cuda", "source": f"seganygaussians_torch/csrc/{src}",
+            "replaces": f"seganygaussians_tpu/ops/blend_pallas.py:{line}",
+            "launches": launches[("C=64", side)]["C=32"], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": bound_ms / ms, "library_ms": None,
+            "instance": "two launches of C=32",
+        })
+        print(f"phase 13: {name} (two C=32 launches): {ms:.3f} ms at the full frame, bound "
+              f"{bound_ms:.4f} ms by {bound_by}; {len(tiles)} tiles against the plain version "
+              f"within {err:.3g}, plain {plain_ms:.1f} ms on them  [{card}]")
+    print(f"phase 13: C=64 frame through rasterize {ms64:.3f} ms  [{card}]")
+    del d, res, args, g_tiles, g_final_t
+    torch.cuda.empty_cache()
+
+    for kind in ("RGB", "C=32"):
+        print(f"phase 13: {kind} frame, median device ms of {N_CAMS}: " + ", ".join(
+            f"{plan} {results[(kind, plan, 'ms')]:.3f} (peak {results[(kind, plan, 'peak')]:.2f}"
+            f" GB)" for plan in plans) + "; rows and sort-free within " + ", ".join(
+            f"{results[(kind, plan, 'err')]:.3g}" for plan in ("rows", "sortfree"))
+            + f" of rect, n_contrib equal  [{card}]")
+    return entries, launches
+
+
+def adam_step_error(got, want, grads) -> tuple[float, int]:
+    """Largest |got − want| between two parameter tensors after one Adam
+    step, and how many elements were left out.  Adam's first step moves an
+    element by its learning rate times the sign of its gradient, so two
+    runs whose gradients differ by float32 rounding (the backward kernel's
+    atomics add in a run-dependent order) move an element whose gradient is
+    within that rounding of 0 in opposite directions.  Elements whose
+    reference gradient is within TOL_GRAD of its column's largest value of
+    0 are left out where the two differ; the gradients themselves are held
+    to each other apart from this."""
+    g = grads.reshape(grads.shape[0], -1)
+    small = (g.abs() <= TOL_GRAD * g.abs().amax(dim=0)).reshape(grads.shape)
+    diff = (got - want).abs()
+    left_out = small & (diff > 1e-6)
+    return float(torch.where(left_out, torch.zeros_like(diff), diff).max()), int(left_out.sum())
+
+
+def phase_parallel(device, card, s, fs, gate, capacity) -> dict:
+    """Phase 14: the parallel layer.  Scene and contrastive data parallelism
+    with two cameras, and the tile-sharded render and gradient with two
+    slabs, each run as two ranks' work in turn on this card
+    (``mesh.run_in_turn``) and held against the single-rank steps; then one
+    real NCCL process group of one rank and ``make_dp_train_step`` on it.
+    Returns the kernels' launches by path."""
+    import socket
+
+    import torch.distributed as dist
+
+    from seganygaussians_torch.models import gaussians as gm
+    from seganygaussians_torch.models import optim
+    from seganygaussians_torch.ops import losses
+    from seganygaussians_torch.ops.blend_cuda import BACKWARD, FORWARD
+    from seganygaussians_torch.ops.quantile import fit_quantile_transform
+    from seganygaussians_torch.ops.rasterize import RasterConfig, rasterize
+    from seganygaussians_torch.ops.sh import eval_sh_color
+    from seganygaussians_torch.parallel import contrastive_dp, data_parallel, tile_sharded
+    from seganygaussians_torch.parallel.mesh import Layout, initialize_distributed, make_mesh
+    from seganygaussians_torch.train import contrastive_trainer as ct
+
+    launches = {}
+
+    def counted(name, fn):
+        FORWARD.reset_counts()
+        BACKWARD.reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        launches[name] = (FORWARD.launches, BACKWARD.launches)
+        return out
+
+    keys = ("xyz", "features_dc", "features_rest", "scaling", "rotation", "opacity")
+    state = gm.with_training_fields(gm.from_dense(*(s[k].cpu().numpy() for k in keys),
+                                                  device=device))
+    cams = orbit_cameras(2, W_FULL, H_FULL)
+    batch, template = data_parallel.stack_cameras(cams)
+    g = torch.Generator(device=device).manual_seed(41)
+    gts = torch.rand(2, H_FULL, W_FULL, 3, generator=g, device=device)
+    bg = torch.zeros(3, device=device)
+    config = RasterConfig(capacity=capacity)
+    hyper = gm.TrainHyper()
+    extent = 2.6 * 1.1
+
+    # --- scene DP, two ranks in turn, against the mean of the per-camera
+    # gradients and one Adam step.
+    dp = data_parallel.make_dp_train_step(Layout(("data",), (2,)), template, hyper, config,
+                                          extent, SH_DEGREE, debug_grads=True)
+    got, loss, overflow, got_grads = counted("scene_dp", lambda: dp(state, batch, gts, bg, 1))
+    check(not overflow and math.isfinite(float(loss)), "phase 14: scene DP step")
+    grads, losses_seq = [], []
+    for cam, gt in zip(cams, gts):
+        leaves = [x.detach().requires_grad_(True) for x in state.params]
+        prm = gm.GaussianParams(*leaves)
+        out = rasterize(prm.xyz, gm.get_opacity(prm)[:, 0], cam, shs=gm.get_shs(prm),
+                        sh_degree=SH_DEGREE, scales=gm.get_scaling(prm),
+                        rotations=gm.get_rotation(prm), bg=bg, active_mask=state.alive,
+                        config=config)
+        l_ = ((1 - hyper.lambda_dssim) * losses.l1_loss(out.color, gt)
+              + hyper.lambda_dssim * (1 - losses.ssim(out.color, gt)))
+        grads.append(torch.autograd.grad(l_, leaves))
+        losses_seq.append(float(l_.detach()))
+        del out, l_, leaves, prm
+    mean = gm.GaussianParams(*((a + b) / 2 for a, b in zip(*grads)))
+    want, _ = optim.adam_update(mean, state.opt, state.params,
+                                gm.make_lr_tree(hyper, extent, 1))
+    grad_err = max(column_error(a, b) for a, b in zip(got_grads, mean))
+    check(grad_err <= TOL_GRAD, f"phase 14: DP gradients differ from the sequential mean by "
+          f"{grad_err:.3g} of a column's max (tolerance {TOL_GRAD})")
+    xyz_err, left_out = adam_step_error(got.params.xyz, want.xyz, mean.xyz)
+    check(xyz_err <= 1e-6, f"phase 14: DP xyz after one step differs by {xyz_err}")
+    check(left_out <= MAX_LEFT_OUT, f"phase 14: {left_out} xyz coordinates left out of the DP "
+          f"step's comparison (at most {MAX_LEFT_OUT})")
+    check(abs(float(loss) - float(np.mean(losses_seq))) <= 1e-6, "phase 14: DP loss")
+    print(f"phase 14: scene DP, 2 cameras as 2 ranks in turn: parameter gradients within "
+          f"{grad_err:.3g} of a column's max of the sequential mean (tolerance {TOL_GRAD}); "
+          f"xyz after one step within {xyz_err:.3g} of the sequential mean-gradient step "
+          f"({left_out} of {3 * N_FULL} coordinates left out, at most {MAX_LEFT_OUT}: gradient "
+          f"within {TOL_GRAD} of its column's max of 0 and moved the other way); loss "
+          f"{float(loss):.6f}; launches {launches['scene_dp']}")
+    del got, want, grads, mean, got_grads
+    torch.cuda.empty_cache()
+
+    # --- contrastive DP at (2, 1) and (1, 2), against the single-camera steps.
+    chyper = ct.ContrastiveHyper(debug_grads=True)  # the CLI's defaults
+    stacks = [synthetic_masks(300 + i, N_MASKS, W_FULL, H_FULL) for i in range(2)]
+    bundles = [ct.build_mask_bundle(m, sc, N_MASKS, device=device) for m, sc in stacks]
+    all_scales = np.concatenate([sc for _, sc in stacks])
+    consts = ct.ContrastiveConsts(
+        upper_bound_scale=torch.tensor(float(all_scales.max()), device=device),
+        qt=fit_quantile_transform(torch.from_numpy(all_scales).to(device)))
+    gate_opt = optim.adam_init(gate)
+    draws = [ct.draw_step(torch.Generator(device=device).manual_seed(60 + i), b, chyper,
+                          chyper.smooth_k) for i, b in enumerate(bundles)]
+    seq = [ct.contrastive_step(fs, gate, gate_opt, cam, b, consts, chyper, config, draws=d)[3]
+           for cam, b, d in zip(cams, bundles, draws)]
+    contrastive = {}
+    for shape in ((2, 1), (1, 2)):
+        d_cams = shape[0]
+        step = contrastive_dp.make_dp_contrastive_step(Layout(("data", "ray"), shape), template,
+                                                       chyper, config)
+        res = counted(f"contrastive_dp_{shape[0]}x{shape[1]}", lambda: step(
+            fs, gate, gate_opt, cams[:d_cams], contrastive_dp.stack_bundles(bundles[:d_cams]),
+            consts, draws[:d_cams]))
+        want = sum(a["feat_grads"] for a in seq[:d_cams]) / d_cams
+        tol = 1e-6 + 1e-4 * float(want.abs().max())
+        err = float((res[5] - want).abs().max())
+        loss_want = float(np.mean([float(a["loss"]) for a in seq[:d_cams]]))
+        check(err <= tol, f"phase 14: contrastive DP {shape} gradients differ by {err} "
+              f"(tolerance {tol})")
+        check(abs(float(res[3]) - loss_want) <= 1e-5 and not res[4],
+              f"phase 14: contrastive DP {shape} loss {float(res[3])} against {loss_want}")
+        contrastive[shape] = (err, tol)
+        del res, want
+    print("phase 14: contrastive DP (1000 rays, K = 16, dropout 0.5), as ranks in turn: "
+          + "; ".join(f"(data, ray) = {k}: feature gradients within {e:.3g} (tolerance "
+                      f"{t:.3g}), launches {launches[f'contrastive_dp_{k[0]}x{k[1]}']}"
+                      for k, (e, t) in contrastive.items()))
+    del seq, draws, bundles
+    torch.cuda.empty_cache()
+
+    # --- tile-sharded render and gradient, 2 slabs in turn, against the frame.
+    p = state.params
+    _, _, center = cams[0].tensors(device)
+    with torch.no_grad():
+        rgb = eval_sh_color(SH_DEGREE, gm.get_shs(p), p.xyz, center).contiguous()
+    geometry = (p.xyz, gm.get_opacity(p)[:, 0].contiguous(), rgb, gm.get_scaling(p),
+                gm.get_rotation(p))
+    slabs = Layout(("tiles",), (2,))
+    render = tile_sharded.make_tile_sharded_render(slabs, "tiles", cams[0], config)
+    img, overflow = counted("tile_render", lambda: render(*geometry, bg))
+    with torch.no_grad():
+        ref = rasterize(geometry[0], geometry[1], cams[0], colors=rgb, scales=geometry[3],
+                        rotations=geometry[4], bg=bg, config=config)
+    err_img = float((img - ref.color).abs().max())
+    check(not overflow and err_img <= 2e-5, f"phase 14: tile-sharded image differs by {err_img}")
+    del img, ref
+    loss_grad = tile_sharded.make_tile_sharded_loss_grad(slabs, "tiles", cams[0], config)
+    (t_loss, overflow), t_grads = counted("tile_grad",
+                                          lambda: loss_grad(*geometry, bg, gts[0]))
+    leaves = [x.detach().requires_grad_(True) for x in geometry]
+    out = rasterize(leaves[0], leaves[1], cams[0], colors=leaves[2], scales=leaves[3],
+                    rotations=leaves[4], bg=bg, config=config)
+    w_loss = torch.mean(torch.abs(out.color - gts[0]))
+    w_grads = torch.autograd.grad(w_loss, leaves)
+    err_loss = abs(float(t_loss) - float(w_loss.detach()))
+    err_grads = [float((a - b).abs().max()) for a, b in zip(t_grads, w_grads)]
+    rel_grads = [e / (float(b.abs().max()) + 1e-30) for e, b in zip(err_grads, w_grads)]
+    check(not overflow and err_loss <= 1e-6, f"phase 14: tile-sharded loss differs by {err_loss}")
+    check(max(err_grads) <= 1e-6, f"phase 14: tile-sharded gradients differ by {err_grads}")
+    print(f"phase 14: tile-sharded, 2 slabs in turn at {W_FULL}x{H_FULL}: image within "
+          f"{err_img:.3g} of the frame (launches {launches['tile_render']}); loss within "
+          f"{err_loss:.3g}, gradients (xyz, opacity, color, scale, rotation) within "
+          f"{max(err_grads):.3g} absolute, {max(rel_grads):.3g} of their largest value "
+          f"(launches {launches['tile_grad']})  [{card}]")
+    del out, w_loss, w_grads, t_grads, leaves, geometry
+    torch.cuda.empty_cache()
+
+    # --- one real NCCL process group at world size 1, and the DP step on it.
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    initialize_distributed("cuda", init_method=f"tcp://localhost:{port}", world_size=1, rank=0,
+                           timeout_s=120)
+    try:
+        check(dist.get_backend() == "nccl", "phase 14: the process group is not NCCL")
+        step = data_parallel.make_dp_train_step(make_mesh(1), template, hyper, config, extent,
+                                                SH_DEGREE)
+        one = (batch._replace(**{k: v[:1] for k, v in batch._asdict().items()}), gts[:1])
+        step(state, one[0], one[1], bg, 1)  # warm-up
+        torch.cuda.synchronize()
+        FORWARD.reset_counts()
+        BACKWARD.reset_counts()
+        nccl_state = state
+        ms = []
+        for i in range(N_TRAIN_STEPS):
+            (nccl_state, nccl_loss, _), t, _ = timed_call(
+                lambda: step(nccl_state, one[0], one[1], bg, i + 1))
+            ms.append(t)
+        launches["nccl_dp"] = (FORWARD.launches, BACKWARD.launches)
+    finally:
+        dist.destroy_process_group()
+    check(launches["nccl_dp"] == (N_TRAIN_STEPS, N_TRAIN_STEPS),
+          f"phase 14: NCCL DP launches {launches['nccl_dp']}")
+    check(math.isfinite(float(nccl_loss)) and bool(torch.isfinite(nccl_state.params.xyz).all()),
+          "phase 14: NCCL DP step not finite")
+    nccl_ms = float(np.median(ms))
+    print(f"phase 14: make_dp_train_step on NCCL, world size 1, {N_FULL} Gaussians at "
+          f"{W_FULL}x{H_FULL}: median {nccl_ms:.3f} ms over {N_TRAIN_STEPS} steps "
+          f"(launches {launches['nccl_dp']}); multi-GPU scaling not measured (one card)  "
+          f"[{card}]")
+    return {"launches": launches, "nccl_ms": nccl_ms}
 
 
 def build_kernels() -> None:
@@ -2499,6 +2993,10 @@ def main() -> int:
                                              capacity)
         query = timed("phase 10", phase_queries, device, card, fstate, fgate, scene, capacity)
         session = timed("phase 12", phase_session, device, card, scene, fstate, fgate, capacity)
+        plan_entries, plan_launches = timed("phase 13", phase_plans, device, card, scene,
+                                            capacity)
+        parallel = timed("phase 14", phase_parallel, device, card, scene, fstate, fgate,
+                         capacity)
         del scene, fstate, fgate
         cli_launches, depth_entry = timed("phase 9", phase_contrastive_cli, device, card,
                                           model_dir)
@@ -2536,6 +3034,26 @@ def main() -> int:
         entry["launches"] = launches
         if kernel == "blend_fwd" and instance in session["launches"]:
             entry["launches_session"] = session["launches"][instance]
+    # Phases 13-14: the C = 3 and 32 instances' launches on each new path,
+    # each window counted from 0 (every one must have launched).
+    par = parallel["launches"]
+    for entry in entries:
+        kernel, instance = entry["name"].rstrip("]").split("[")
+        if instance not in ("C=3", "C=32"):
+            continue
+        kind, side = ("RGB" if instance == "C=3" else "C=32"), int(kernel == "blend_bwd")
+        new = {f"launches_{plan}": plan_launches[(kind, plan) if not side else
+                                                 (kind, plan, "bwd")].get(instance, 0)
+               for plan in ("rows", "sortfree")}
+        paths = (("scene_dp", "tile_render", "tile_grad", "nccl_dp") if instance == "C=3"
+                 else ("contrastive_dp_2x1", "contrastive_dp_1x2"))
+        for path in paths:
+            if path != "tile_render" or not side:
+                new[f"launches_{path}"] = par[path][side]
+        check(all(v > 0 for v in new.values()),
+              f"{entry['name']} was not launched on a new path: {new}")
+        entry.update(new)
+    entries += plan_entries
     entries.append(depth_entry)
     entries += scan_entries
     worst = max(err_full, depth_entry["max_abs_err"], query["pixel_err"], session["pixel_err"],

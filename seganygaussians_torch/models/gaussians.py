@@ -24,7 +24,11 @@ import torch
 from seganygaussians_torch.models import optim
 from seganygaussians_torch.ops.knn import mean_sq_dist_to_3nn
 from seganygaussians_torch.ops.sh import rgb2sh
-from seganygaussians_torch.ops.transforms import build_rotation, inverse_sigmoid
+from seganygaussians_torch.ops.transforms import (
+    build_covariance_3d,
+    build_rotation,
+    inverse_sigmoid,
+)
 
 
 class GaussianParams(NamedTuple):
@@ -90,6 +94,11 @@ def get_rotation(params: GaussianParams) -> torch.Tensor:
     return params.rotation / torch.linalg.norm(
         params.rotation, dim=-1, keepdim=True
     ).clamp_min(1e-12)
+
+
+def get_covariance(params: GaussianParams, scale_modifier: float = 1.0) -> torch.Tensor:
+    """Packed (N, 6) 3D covariances of the activated scales and rotations."""
+    return build_covariance_3d(get_scaling(params), get_rotation(params), scale_modifier)
 
 
 def get_shs(params: GaussianParams) -> torch.Tensor:

@@ -10,12 +10,16 @@ through ``ctypes`` (a plain C interface, so a build takes seconds, not the
 minutes a source including PyTorch's headers takes).
 
 A CUDA tensor goes through the kernels or raises: a failed build, a refused
-launch, more than 32 channels or a tile size other than 8, 16 and 32 all
-raise.  The kernels have instances for C = 3, 4, 5, 8, 16, 24 and 32; any
-other C ≤ 32 runs through the next larger instance on zero-padded color
-columns, as ``blend_pallas.py`` pads C to a multiple of 8, and the padding is
-cut off the outputs (and off the gradients).  A CPU tensor takes the plain
-version in ``ops/blend.py``, which is differentiable.  The
+launch or a tile size other than 8, 16 and 32 all raise.  The kernels have
+instances for C = 3, 4, 5, 8, 16, 24 and 32; any other C ≤ 32 runs through
+the next larger instance on zero-padded color columns, as ``blend_pallas.py``
+pads C to a multiple of 8, and the padding is cut off the outputs (and off
+the gradients).  More than 32 channels run in groups of at most 32
+(:func:`channel_groups`), one launch a group: the forward's color tiles are
+concatenated and its ``final_t`` and ``n_contrib``, which depend on the
+geometry alone, are the first group's; the backward sums the groups'
+geometry rows and gives ``g_final_t`` to the first group only.  A CPU tensor
+takes the plain version in ``ops/blend.py``, which is differentiable.  The
 CUDA path is a ``torch.autograd.Function`` whose forward is the forward kernel
 and whose backward is the backward kernel.
 """
@@ -171,24 +175,18 @@ class _CudaKernel:
                     f"needs {dtypes.get(name, torch.float32)}"
                 )
 
-    def _channels(self, table: torch.Tensor, bg: torch.Tensor,
-                  tile_size: int) -> tuple[int, int]:
-        """(C, the channel count of the instance that runs it), after the
-        checks that raise on what the kernel does not take."""
+    def _channels(self, table: torch.Tensor, bg: torch.Tensor, tile_size: int) -> int:
+        """C, after the checks that raise on what the kernel does not take."""
         if table.dim() != 2 or table.shape[1] < 7:
             raise ValueError(f"{self.name} kernel: table shape {tuple(table.shape)}")
         c = table.shape[1] - 6
-        if c > MAX_CHANNELS:
-            raise ValueError(
-                f"{self.name} kernel takes at most {MAX_CHANNELS} channels, got C={c}"
-            )
         if bg.shape != (c,):
             raise ValueError(f"{self.name} kernel: bg shape {tuple(bg.shape)}, needs ({c},)")
         if tile_size not in TILE_SIZES:
             raise ValueError(
                 f"{self.name} kernel: tile_size {tile_size} unsupported (takes {TILE_SIZES})"
             )
-        return c, instance_channels(c)
+        return c
 
     def _launch(self, c: int, num_tiles: int, device: torch.device, *args,
                 instance: Optional[str] = None) -> None:
@@ -214,6 +212,19 @@ def instance_channels(c: int) -> int:
     if not 1 <= c <= MAX_CHANNELS:
         raise ValueError(f"the blend kernels take 1..{MAX_CHANNELS} channels, got C={c}")
     return c if c in CHANNELS else -(-c // 8) * 8
+
+
+def channel_groups(c: int) -> list[tuple[int, int]]:
+    """The color columns [lo, hi) of the launches that run C channels: one
+    launch for C ≤ 32, else groups of 32 and a last group of the rest."""
+    if c < 1:
+        raise ValueError(f"the blend kernels need at least one channel, got C={c}")
+    return [(lo, min(lo + MAX_CHANNELS, c)) for lo in range(0, c, MAX_CHANNELS)]
+
+
+def _group_table(table: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """The geometry columns and color columns [lo, hi) of a blend table."""
+    return torch.cat([table[:, :6], table[:, 6 + lo:6 + hi]], dim=1)
 
 
 def instance_name(c: int, tile_size: int) -> str:
@@ -248,7 +259,18 @@ class ForwardKernel(_CudaKernel):
         n_contrib (T, P) int32."""
         tensors = {"gauss_s": gauss_s, "tile_starts": tile_starts, "table": table, "bg": bg}
         self._check(tensors, _RANKS, table.device)
-        c, ci = self._channels(table, bg, tile_size)
+        c = self._channels(table, bg, tile_size)
+        groups = channel_groups(c)
+        if len(groups) == 1:
+            return self._group(gauss_s, tile_starts, table, bg, grid_x, tile_size)
+        outs = [self._group(gauss_s, tile_starts, _group_table(table, lo, hi),
+                            bg[lo:hi].contiguous(), grid_x, tile_size) for lo, hi in groups]
+        return torch.cat([o[0] for o in outs], dim=-1), outs[0][1], outs[0][2]
+
+    def _group(self, gauss_s, tile_starts, table, bg, grid_x, tile_size):
+        """One launch, at most 32 channels."""
+        c = table.shape[1] - 6
+        ci = instance_channels(c)
         if ci != c:
             table, bg = _pad_channels(table, 6 + ci), _pad_channels(bg, ci)
         p = tile_size * tile_size
@@ -293,7 +315,7 @@ class BackwardKernel(_CudaKernel):
                    "g_tiles": g_tiles, "g_final_t": g_final_t, "tiles": tiles,
                    "final_t": final_t}
         self._check(tensors, _RANKS, table.device)
-        c, ci = self._channels(table, bg, tile_size)
+        c = self._channels(table, bg, tile_size)
         p = tile_size * tile_size
         num_tiles = tile_starts.shape[0] - 1
         for name, shape in (("g_tiles", (num_tiles, p, c)), ("tiles", (num_tiles, p, c)),
@@ -303,6 +325,32 @@ class BackwardKernel(_CudaKernel):
                     f"{self.name} kernel: {name} shape {tuple(tensors[name].shape)}, "
                     f"needs {shape}"
                 )
+        groups = channel_groups(c)
+        if len(groups) == 1:
+            return self._group(gauss_s, tile_starts, table, bg, g_tiles, g_final_t, tiles,
+                               final_t, grid_x, tile_size)
+        # The geometry rows are linear in the cotangents: each group adds its
+        # colors' share, and the final_t term counts once.
+        d_table = torch.empty_like(table)
+        no_final_t = torch.zeros_like(g_final_t)
+        for i, (lo, hi) in enumerate(groups):
+            d = self._group(gauss_s, tile_starts, _group_table(table, lo, hi),
+                            bg[lo:hi].contiguous(), g_tiles[..., lo:hi].contiguous(),
+                            g_final_t if i == 0 else no_final_t,
+                            tiles[..., lo:hi].contiguous(), final_t, grid_x, tile_size)
+            if i == 0:
+                d_table[:, :6] = d[:, :6]
+            else:
+                d_table[:, :6] += d[:, :6]
+            d_table[:, 6 + lo:6 + hi] = d[:, 6:]
+        return d_table
+
+    def _group(self, gauss_s, tile_starts, table, bg, g_tiles, g_final_t, tiles, final_t,
+               grid_x, tile_size):
+        """One launch, at most 32 channels."""
+        c = table.shape[1] - 6
+        num_tiles = tile_starts.shape[0] - 1
+        ci = instance_channels(c)
         if ci != c:
             table, bg = _pad_channels(table, 6 + ci), _pad_channels(bg, ci)
             g_tiles, tiles = _pad_channels(g_tiles, ci), _pad_channels(tiles, ci)
@@ -507,21 +555,9 @@ def blend_fused_plain(
 ) -> blend_torch.BlendOutput:
     """:func:`blend_fused` through the plain version, on any device."""
     fields = tuple(fields)
-    n = fields[0].shape[0]
-    gauss_s, tile_s, tile_starts = sort_instances(slot_rank, slot_tile, n, grid_x * grid_y)
-    return blend_torch.blend(
-        torch.clamp_max(gauss_s, max(n - 1, 0)),
-        tile_s,
-        tile_starts,
-        torch.stack(fields[0:2], dim=-1),
-        torch.stack(fields[2:5], dim=-1),
-        fields[5],
-        torch.stack(fields[6:], dim=-1),
-        bg,
-        grid_x,
-        grid_y,
-        tile_size,
-    )
+    gauss_s, _, tile_starts = sort_instances(slot_rank, slot_tile, fields[0].shape[0],
+                                             grid_x * grid_y)
+    return blend_sortfree_plain(gauss_s, tile_starts, fields, bg, grid_x, grid_y, tile_size)
 
 
 def blend_fused(
@@ -542,16 +578,70 @@ def blend_fused(
     CPU tensors run ``ops/blend.py``.
     """
     fields = tuple(fields)
+    gauss_s, _, tile_starts = sort_instances(slot_rank, slot_tile, fields[0].shape[0],
+                                             grid_x * grid_y)
+    return blend_sortfree(gauss_s, tile_starts, fields, bg, grid_x, grid_y, tile_size)
+
+
+def blend_sortfree_plain(
+    sorted_gauss: torch.Tensor,
+    tile_starts: torch.Tensor,
+    fields,
+    bg: torch.Tensor,
+    grid_x: int,
+    grid_y: int,
+    tile_size: int,
+) -> blend_torch.BlendOutput:
+    """:func:`blend_sortfree` through the plain version, on any device."""
+    fields = tuple(fields)
+    n = fields[0].shape[0]
+    starts = tile_starts.long()
+    live = int(starts[-1])
+    tile_s = torch.repeat_interleave(
+        torch.arange(grid_x * grid_y, device=starts.device), starts[1:] - starts[:-1]
+    )
+    return blend_torch.blend(
+        torch.clamp_max(sorted_gauss[:live], max(n - 1, 0)),
+        tile_s,
+        tile_starts,
+        torch.stack(fields[0:2], dim=-1),
+        torch.stack(fields[2:5], dim=-1),
+        fields[5],
+        torch.stack(fields[6:], dim=-1),
+        bg,
+        grid_x,
+        grid_y,
+        tile_size,
+    )
+
+
+def blend_sortfree(
+    sorted_gauss: torch.Tensor,
+    tile_starts: torch.Tensor,
+    fields,
+    bg: torch.Tensor,
+    grid_x: int,
+    grid_y: int,
+    tile_size: int,
+) -> blend_torch.BlendOutput:
+    """Forward blend of instances already in (tile, depth) order,
+    differentiable.
+
+    Counterpart of ``blend_pallas.py:blend_sortfree``: ``sorted_gauss`` and
+    ``tile_starts`` come from ``binning.plan_instances`` (or, in
+    :func:`blend_fused`, from the sort), ``fields`` as in :func:`blend_fused`.
+    CUDA tensors run the two Hopper kernels; CPU tensors run
+    ``ops/blend.py``."""
+    fields = tuple(fields)
     device = fields[0].device
     if device.type == "cpu":
-        return blend_fused_plain(slot_rank, slot_tile, fields, bg, grid_x, grid_y, tile_size)
+        return blend_sortfree_plain(sorted_gauss, tile_starts, fields, bg, grid_x, grid_y,
+                                    tile_size)
     if device.type != "cuda":
-        raise ValueError(f"blend_fused: no kernel for device {device}")
-    n = fields[0].shape[0]
-    gauss_s, _, tile_starts = sort_instances(slot_rank, slot_tile, n, grid_x * grid_y)
+        raise ValueError(f"blend_sortfree: no kernel for device {device}")
     table = torch.stack(fields, dim=-1).float().contiguous()
     tiles, final_t, n_contrib = _BlendForward.apply(
-        table, bg.float().contiguous(), gauss_s.contiguous(),
+        table, bg.float().contiguous(), sorted_gauss.contiguous(),
         tile_starts.contiguous(), grid_x, tile_size,
     )
     return blend_torch.BlendOutput(tiles, final_t, n_contrib)

@@ -8,10 +8,12 @@ default path: one vectorised pass over N Gaussians with validity masks.
   * EWA J·W·Σ·Wᵀ·Jᵀ with t.x/t.y clamped to ±1.3·tanfov, +0.3 low-pass
   * radius = ceil(3·sqrt(max eigenvalue)) (the reference's 3σ radii)
   * exact α ≥ 1/255 tile rects when opacities are given, via getRect
+  * with ``row_footprints``, per-tile-row x-intervals of that ellipse
+    (:func:`_row_intervals`) and the exact count of the tiles they cover
   * ndc2Pix(v, S) = ((v+1)·S − 1)/2
 
-The 4×4 and 3×3 products are written out elementwise, so they stay in full
-fp32 whatever the card's TF32 settings are.
+The 4×4 and 3×3 products are written out elementwise, and so are the row
+intervals, so they stay in full fp32 whatever the card's TF32 settings are.
 """
 
 from __future__ import annotations
@@ -35,6 +37,8 @@ class Preprocessed(NamedTuple):
     rect_max: torch.Tensor  # (N, 2) int32 tile rect exclusive-max
     tiles_touched: torch.Tensor  # (N,) int32
     valid: torch.Tensor  # (N,) bool
+    # (N, grid_y) int32 x0_tile | width << 10 per tile row, with row_footprints
+    row_pack: Optional[torch.Tensor] = None
 
 
 def _row_vec_mul(p: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
@@ -114,6 +118,65 @@ def _tile_index(v: torch.Tensor, hi: int) -> torch.Tensor:
     return torch.clamp(torch.floor(v), 0, hi).to(torch.int32)
 
 
+def _row_intervals(mx, my, conics, tau, rx0, rx1, ry0, ry1, grid_y: int, tile_size: int):
+    """Per-tile-row x-intervals of the α ≥ 1/255 ellipse, (N, grid_y).
+
+    The contributing set {q(dx, dy) ≤ 2τ}, q = a·dx² + 2b·dx·dy + c·dy²
+    (conic (a, b, c), τ = ln(255·opa)), meets the pixel-row band
+    dy ∈ [dyl, dyh] in an x-interval.  Its upper boundary
+    x₊(dy) = (−b·dy + √D)/a with D = 2aτ − det·dy² is concave, so the
+    interval's max is x₊ at the critical point dy* = −b·√(2τ/(c·det))
+    clipped to the band; the lower boundary follows from x₋(dy) = −x₊(−dy).
+    A ±1 px margin absorbs rounding, as the rect's does.  Rows outside the
+    rect get width 0; a degenerate conic gets the rect's full width.
+
+    Returns (row_pack int32 (N, grid_y): x0_tile | width << 10, the exact
+    tiles_touched (N,) int32)."""
+    ts = tile_size
+    a, b, c = conics[:, 0:1], conics[:, 1:2], conics[:, 2:3]
+    det = a * c - b * b
+    ok = (det > 0.0) & (a > 0.0) & (c > 0.0)
+    one = torch.ones_like(det)
+    det_s, a_s, c_s = torch.where(ok, det, one), torch.where(ok, a, one), torch.where(ok, c, one)
+    tau = torch.clamp_min(tau[:, None], 0.0)
+
+    ty = torch.arange(grid_y, dtype=torch.float32, device=mx.device)[None, :]
+    dyl = ty * ts - my[:, None]  # first pixel-centre offset of each row
+    dyh = dyl + (ts - 1)  # last
+
+    dmax = torch.sqrt(torch.clamp_min(2.0 * a_s * tau / det_s, 0.0))
+    dy_star = -torch.sign(b) * torch.abs(b) * torch.sqrt(
+        torch.clamp_min(2.0 * tau / (c_s * det_s), 0.0)
+    )
+
+    def xmax_over(lo_in, hi_in):
+        lo = torch.maximum(lo_in, -dmax)
+        hi = torch.minimum(hi_in, dmax)
+        dyc = torch.minimum(torch.maximum(dy_star, lo), hi)
+        d_val = torch.clamp_min(2.0 * a_s * tau - det_s * dyc * dyc, 0.0)
+        return (-b * dyc + torch.sqrt(d_val)) / a_s, lo <= hi
+
+    x_hi, nonempty = xmax_over(dyl, dyh)
+    x_lo = -xmax_over(-dyh, -dyl)[0]
+
+    ty_i = torch.arange(grid_y, dtype=torch.int32, device=mx.device)[None, :]
+    x0, x1 = rx0[:, None], rx1[:, None]
+    in_rows = (ty_i >= ry0[:, None]) & (ty_i < ry1[:, None])
+    live = in_rows & nonempty & ok
+
+    def tile_col(v):  # floor(v) as int32, clipped to the rect's columns
+        v = torch.clamp(torch.floor(v), -(2 ** 30), 2 ** 30).to(torch.int32)
+        return torch.minimum(torch.maximum(v, x0), x1)
+
+    tx0 = tile_col((mx[:, None] + x_lo - 1.0) / ts)
+    tx1 = tile_col((mx[:, None] + x_hi + 1.0 + ts - 1) / ts)
+    tx0 = torch.where(ok, tx0, x0)
+    zero = torch.zeros_like(tx0)
+    w = torch.where(live, torch.clamp_min(tx1 - tx0, 0), zero)
+    w = torch.where(in_rows & ~ok, torch.clamp_min(x1 - x0, 0).expand_as(w), w)
+    return tx0 | (w << 10), torch.sum(w, dim=-1, dtype=torch.int32)
+
+
 def preprocess(
     means3d: torch.Tensor,
     camera: CameraParams,
@@ -132,13 +195,11 @@ def preprocess(
     ``opacities`` (N,) activated opacities give the exact footprint of the
     α ≥ 1/255 ellipse, |dx| ≤ e·√cov_xx, |dy| ≤ e·√cov_yy with
     e = √(2·ln(255·opa)), capped by the 3σ circle; the reported ``radii``
-    keep the reference's 3σ semantics.
+    keep the reference's 3σ semantics.  ``row_footprints`` (with
+    ``opacities``) narrows each tile row of the rect to the ellipse's
+    interval: ``row_pack`` holds the intervals and ``tiles_touched`` counts
+    their tiles.
     """
-    if row_footprints:
-        raise NotImplementedError(
-            "row_footprints: ported with the remainder slice "
-            "(ROADMAP.md Queue 1, item 'Remainder')"
-        )
     if cov3d_precomp is None:
         if scales is None or rotations is None:
             raise ValueError("preprocess needs scales and rotations, or cov3d_precomp")
@@ -206,6 +267,15 @@ def preprocess(
             visible = visible & active_mask
         valid = visible & (num_tiles > 0) & opa_visible
         radii = torch.where(visible, radius_f, torch.zeros_like(radius_f)).to(torch.int32)
+
+        row_pack = None
+        if opacities is not None and row_footprints:
+            tau = torch.log(torch.clamp_min(opa, 1e-12) * 255.0)
+            row_pack, num_tiles = _row_intervals(
+                mx, my, conics, tau, rx0, rx1, ry0, ry1, grid_y, tile_size
+            )
+            valid = valid & (num_tiles > 0)
+            row_pack = torch.where(valid[:, None], row_pack, torch.zeros_like(row_pack))
         tiles_touched = torch.where(valid, num_tiles, torch.zeros_like(num_tiles))
 
     return Preprocessed(
@@ -217,4 +287,5 @@ def preprocess(
         rect_max=torch.stack([rx1, ry1], dim=-1),
         tiles_touched=tiles_touched.to(torch.int32),
         valid=valid,
+        row_pack=row_pack,
     )

@@ -6,7 +6,9 @@ and mask (extra alpha-composited channels) and 32-dim affinity features are
 the same call.
 
   preprocess (projection.py) — per-Gaussian projection, culling, tile rects
-  binning    (binning.py)    — depth sort, slot expansion, (tile, depth) sort
+                               (per-row intervals with ``row_footprints``)
+  binning    (binning.py)    — depth sort, slot expansion, (tile, depth) sort;
+                               analytic destinations on ``cuda_sortfree``
   blend      (blend_cuda.py on CUDA tensors, blend.py otherwise)
 
 Everything is differentiable.  On CUDA tensors the blend's forward and
@@ -26,12 +28,12 @@ import torch
 
 from seganygaussians_torch.ops import blend as blend_torch
 from seganygaussians_torch.ops import blend_cuda
-from seganygaussians_torch.ops.binning import expand_slots
+from seganygaussians_torch.ops.binning import expand_slots, plan_instances
 from seganygaussians_torch.ops.camera import CameraParams
 from seganygaussians_torch.ops.projection import preprocess
 from seganygaussians_torch.ops.sh import eval_sh_color
 
-BACKENDS = ("auto", "cuda", "torch")
+BACKENDS = ("auto", "cuda", "cuda_sortfree", "torch")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,11 +41,14 @@ class RasterConfig:
     tile_size: int = 16
     capacity: int = 1 << 18  # instance budget (tile-overlap count)
     # "auto": the CUDA kernel for CUDA tensors, the plain version for CPU
-    # tensors; "cuda": the kernel (CUDA tensors only); "torch": the plain
-    # version on any device.
+    # tensors; "cuda": the kernel (CUDA tensors only); "cuda_sortfree": the
+    # sort-free plan (binning.plan_instances), then as "auto"; "torch": the
+    # plain version on any device.
     backend: str = "auto"
     scale_modifier: float = 1.0
-    row_footprints: bool = False  # not ported yet: preprocess raises
+    # Per-tile-row ellipse footprints: fewer instances, the same image, a
+    # two-level expansion (ops/binning.py:_expand_slots_rows).
+    row_footprints: bool = False
 
 
 class RasterOutput(NamedTuple):
@@ -134,7 +139,10 @@ def rasterize(
     grid_x = (camera.width + ts - 1) // ts
     grid_y = (camera.height + ts - 1) // ts
 
-    plan = expand_slots(prep, grid_x, grid_y, config.capacity)
+    if backend == "cuda_sortfree":
+        plan = plan_instances(prep, grid_x, grid_y, config.capacity)
+    else:
+        plan = expand_slots(prep, grid_x, grid_y, config.capacity)
     perm = plan.depth_perm
     means2d_d = means2d[perm]
     conics_d = prep.conics[perm]
@@ -145,9 +153,14 @@ def rasterize(
         conics_d[:, 0], conics_d[:, 1], conics_d[:, 2],
         opacities_d,
     ) + tuple(colors_d.unbind(-1))
-    # blend_fused runs the kernel on CUDA tensors, the plain version on CPU.
-    blend_fn = blend_cuda.blend_fused_plain if backend == "torch" else blend_cuda.blend_fused
-    out = blend_fn(plan.slot_rank, plan.slot_tile, fields, bg_full, grid_x, grid_y, ts)
+    # blend_fused and blend_sortfree run the kernels on CUDA tensors, the
+    # plain version on CPU tensors.
+    if backend == "cuda_sortfree":
+        out = blend_cuda.blend_sortfree(plan.sorted_gauss, plan.tile_starts, fields, bg_full,
+                                        grid_x, grid_y, ts)
+    else:
+        blend_fn = blend_cuda.blend_fused_plain if backend == "torch" else blend_cuda.blend_fused
+        out = blend_fn(plan.slot_rank, plan.slot_tile, fields, bg_full, grid_x, grid_y, ts)
 
     def to_image(x):
         return blend_torch.tiles_to_image(x, grid_x, grid_y, ts, camera.width, camera.height)

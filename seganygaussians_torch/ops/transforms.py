@@ -68,3 +68,13 @@ def strip_symmetric(sym: torch.Tensor) -> torch.Tensor:
         ],
         dim=-1,
     )
+
+
+def unpack_symmetric(packed: torch.Tensor) -> torch.Tensor:
+    """Packed (N, 6) (xx, xy, xz, yy, yz, zz) → full symmetric (N, 3, 3)."""
+    xx, xy, xz, yy, yz, zz = packed.unbind(-1)
+    return torch.stack([
+        torch.stack([xx, xy, xz], dim=-1),
+        torch.stack([xy, yy, yz], dim=-1),
+        torch.stack([xz, yz, zz], dim=-1),
+    ], dim=-2)

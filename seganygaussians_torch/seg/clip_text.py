@@ -166,7 +166,7 @@ class _OpenClipImpl:
     Reference-made ``clip_features`` sidecars were embedded with it; scores
     against them mean something only with this backend."""
 
-    def __init__(self, model_name: str, pretrained: str, device="cpu"):
+    def __init__(self, model_name: str, pretrained: str, device="cuda"):
         import open_clip
 
         model, _, _ = open_clip.create_model_and_transforms(model_name, pretrained=pretrained)
@@ -200,7 +200,7 @@ class _HfClipImpl:
     """HF ``transformers`` CLIP from local files only (other weights than the
     reference's laion2b tower: do NOT score reference-made sidecars with it)."""
 
-    def __init__(self, model_name: str, device="cpu"):
+    def __init__(self, model_name: str, device="cuda"):
         from transformers import CLIPModel, CLIPProcessor
 
         self.device = torch.device(device)
@@ -228,7 +228,8 @@ class ClipEncoder:
     announced with a warning: its embeddings do not match laion2b sidecars.
     ``_impl`` is a seam for tests: any object with
     ``encode_text(prompts) -> (P, D)`` and ``encode_image(images) -> (B, D)``
-    (un-normalised) plugs in.  ``backend`` names the one in use."""
+    (un-normalised) plugs in.  ``backend`` names the one in use.  The tower
+    runs on the card unless ``device`` names another."""
 
     def __init__(
         self,
@@ -236,7 +237,7 @@ class ClipEncoder:
         pretrained: str = "laion2b_s34b_b88k",
         hf_model_name: str = "openai/clip-vit-base-patch16",
         backend: str = "auto",
-        device="cpu",
+        device="cuda",
         _impl=None,
     ):
         if _impl is not None:

@@ -40,6 +40,7 @@ from seganygaussians_torch.ops.quantile import (
     fit_quantile_transform,
 )
 from seganygaussians_torch.ops.rasterize import RasterConfig, rasterize
+from seganygaussians_torch.parallel.mesh import collective, run_alone
 from seganygaussians_torch.seg.scale_gate import ScaleGateParams, apply_scale_gate
 from seganygaussians_torch.utils.precision import ieee_fp32_matmul
 
@@ -224,6 +225,110 @@ class ContrastiveHyper:
     debug_grads: bool = False
 
 
+def _block_loss(
+    point_features: torch.Tensor,
+    gate: ScaleGateParams,
+    feat_state: fgm.FeatureState,
+    camera: CameraParams,
+    consts: ContrastiveConsts,
+    draws: StepDraws,
+    q_scales: torch.Tensor,
+    gt_corrs: torch.Tensor,
+    ppw: torch.Tensor,
+    hyper: ContrastiveHyper,
+    config: RasterConfig,
+    block: int = 0,
+    ray_size: int = 1,
+):
+    """The loss on ray block ``block`` of ``ray_size`` as a function of the
+    two learnable leaves, a generator of its sums over the mesh's "ray" axis
+    (``parallel/mesh.py``).
+
+    A block is the rows (S, R/ray, R) of the ray correlations: the whole
+    (S, R, R) never exists on a rank.  The pair counts are summed over "ray"
+    between the stages, outside the differentiated loss: a collective inside
+    the graph would have no gradient.  Returns (the loss to differentiate,
+    the block's pair loss, the regulariser, aux).  The regulariser is the
+    same on every rank of a camera, so the loss to differentiate carries it
+    divided by the ray count and the sum of the ranks' gradients counts it
+    once.  At one block the loss to differentiate is the camera's loss."""
+    r_total = draws.ray_idx.shape[0]
+    if r_total % ray_size:
+        raise ValueError(f"{r_total} rays do not split into {ray_size} blocks")
+    r_local = r_total // ray_size
+    row0 = block * r_local
+    rows = slice(row0, row0 + r_local)
+    s_total = gt_corrs.shape[0]
+    gt_blk, ppw_blk, rand_blk = gt_corrs[:, rows], ppw[rows], draws.pair_rand[rows]
+    geom = feat_state.geom
+    with ieee_fp32_matmul():
+        fs = feat_state._replace(point_features=point_features)
+        smoothed = fgm.smooth_features(
+            fs, hyper.smooth_type, cols=draws.smooth_cols, maps=consts.multi_res_maps or None
+        )
+        # The smoothers L2-normalise before the K-mean; the render normalises
+        # each point's feature again, as the reference does.
+        feats = _safe_normalize(smoothed)
+        out = rasterize(
+            geom.xyz,
+            fgm.get_opacity(geom)[:, 0],
+            camera,
+            colors=feats,
+            scales=fgm.get_scaling(geom),
+            rotations=fgm.get_rotation(geom),
+            bg=torch.zeros((feats.shape[-1],), dtype=torch.float32, device=feats.device),
+            active_mask=geom.alive,
+            config=config,
+        )
+        fmap = out.color  # (H, W, D)
+        d = fmap.shape[-1]
+        # feature-norm regulariser
+        rfn_val = torch.mean(_safe_norm(fmap))
+        rfn_reg = (1.0 - rfn_val) ** 2
+        ray_feats = fmap.reshape(-1, d)[draws.ray_idx]  # (R, D)
+        gates = apply_scale_gate(gate, q_scales[:, None])  # (S, D)
+        scaled = _safe_normalize(ray_feats[None, :, :] * gates[:, None, :])  # (S, R, D)
+        corr = torch.einsum("nhc,njc->nhj", scaled[:, rows], scaled)  # (S, R/ray, R)
+
+    device = corr.device
+    with torch.no_grad():
+        row_ids = torch.arange(row0, row0 + r_local, device=device)[:, None]
+        col_ids = torch.arange(r_total, device=device)[None, :]
+        off_diag_upper = (row_ids != col_ids) & (row_ids <= col_ids)
+        sum0 = torch.sum(gt_blk, dim=0)
+        cons_neg, cons_pos = sum0 == 0, sum0 == s_total
+        inconsistent = ~(cons_neg | cons_pos)
+    (counts,) = yield collective(
+        "sum", "ray", torch.stack([inconsistent.sum(), cons_pos.sum(), cons_neg.sum()]))
+    with torch.no_grad():
+        n_inc, n_pos, n_neg = counts
+        sampled_num = n_inc / 2.0
+        samp_pos = cons_pos & (rand_blk < sampled_num / n_pos.clamp_min(1))
+        samp_neg = cons_neg & (rand_blk < sampled_num / n_neg.clamp_min(1))
+        trig_pos = torch.any((corr < 0.75) & (gt_blk == 1), dim=0)
+        trig_neg = torch.any((corr > 0.5) & (gt_blk == 0), dim=0)
+        mask_pos = (samp_pos | trig_pos | inconsistent) & off_diag_upper
+        mask_neg = (samp_neg | trig_neg | inconsistent) & off_diag_upper
+        is_pos, is_neg = gt_blk == 1, gt_blk == 0
+        cos_sums = torch.stack([torch.sum(corr * is_pos), torch.sum(corr * is_neg)])
+        cos_counts = torch.stack([torch.sum(is_pos), torch.sum(is_neg)])
+    dens, cos_sums, cos_counts = yield collective(
+        "sum", "ray", torch.stack([mask_pos.sum(), mask_neg.sum()]), cos_sums, cos_counts)
+
+    with ieee_fp32_matmul():
+        den_p, den_n = (dens * s_total).clamp_min(1)
+        wp = ppw_blk[None] * gt_blk * corr
+        wn = ppw_blk[None] * (1 - gt_blk) * torch.relu(corr)
+        pair_loss = (-torch.sum(wp * mask_pos[None]) / den_p
+                     + torch.sum(wn * mask_neg[None]) / den_n)
+        loss = pair_loss + hyper.rfn * rfn_reg / ray_size
+    with torch.no_grad():
+        cosine = cos_sums / cos_counts.clamp_min(1)
+        aux = {"rfn": rfn_val.detach(), "cosine_pos": cosine[0], "cosine_neg": cosine[1],
+               "overflow": out.overflow}
+    return loss, pair_loss.detach(), rfn_reg.detach(), aux
+
+
 def contrastive_loss(
     point_features: torch.Tensor,
     gate: ScaleGateParams,
@@ -238,71 +343,67 @@ def contrastive_loss(
     config: RasterConfig,
 ):
     """The step's loss and metrics as a function of the two learnable leaves."""
-    geom = feat_state.geom
-    fs = feat_state._replace(point_features=point_features)
-    smoothed = fgm.smooth_features(
-        fs, hyper.smooth_type, cols=draws.smooth_cols, maps=consts.multi_res_maps or None
-    )
-    # The smoothers L2-normalise before the K-mean; the render normalises
-    # each point's feature again, as the reference does.
-    feats = _safe_normalize(smoothed)
-    out = rasterize(
-        geom.xyz,
-        fgm.get_opacity(geom)[:, 0],
-        camera,
-        colors=feats,
-        scales=fgm.get_scaling(geom),
-        rotations=fgm.get_rotation(geom),
-        bg=torch.zeros((feats.shape[-1],), dtype=torch.float32, device=feats.device),
-        active_mask=geom.alive,
-        config=config,
-    )
-    fmap = out.color  # (H, W, D)
-    d = fmap.shape[-1]
+    loss, _, _, aux = run_alone(_block_loss(point_features, gate, feat_state, camera, consts,
+                                            draws, q_scales, gt_corrs, ppw, hyper, config))
+    return loss, aux
 
-    # feature-norm regulariser
-    rfn_val = torch.mean(_safe_norm(fmap))
-    rfn_reg = (1.0 - rfn_val) ** 2
 
-    ray_feats = fmap.reshape(-1, d)[draws.ray_idx]  # (R, D)
-    gates = apply_scale_gate(gate, q_scales[:, None])  # (S, D)
-    scaled = _safe_normalize(ray_feats[None, :, :] * gates[:, None, :])  # (S, R, D)
-    corr = torch.einsum("nhc,njc->nhj", scaled, scaled)
+def contrastive_block_step(
+    feat_state: fgm.FeatureState,
+    gate_params: ScaleGateParams,
+    gate_opt: optim.AdamState,
+    camera: CameraParams,
+    bundle: MaskBundle,
+    consts: ContrastiveConsts,
+    draws: StepDraws,
+    hyper: ContrastiveHyper,
+    config: RasterConfig,
+    block: int = 0,
+    ray_size: int = 1,
+):
+    """One camera's step on ray block ``block`` of ``ray_size``, a generator
+    of its collectives (``parallel/mesh.py``): the loss's sums over "ray",
+    then the gradients and the pair loss summed over "ray" and averaged with
+    the loss over "data", and the overflow flag maxed.  Returns (feat_state,
+    gate_params, gate_opt, aux).  On a mesh of one rank it is
+    :func:`contrastive_step`."""
+    with torch.no_grad():
+        q_scales, gt_corrs = _sample_scales_and_gt(draws, bundle, consts)
+        ppw = _pixel_weights(bundle, draws.ray_idx)  # (R, R)
 
-    r = corr.shape[1]
-    eye = torch.eye(r, dtype=torch.bool, device=corr.device)
-    s_total = gt_corrs.shape[0]
-    sum0 = torch.sum(gt_corrs, dim=0)
-    cons_neg = sum0 == 0
-    cons_pos = sum0 == s_total
-    inconsistent = ~(cons_neg | cons_pos)
-    sampled_num = torch.sum(inconsistent) / 2.0
-    rand = draws.pair_rand
-    samp_pos = cons_pos & (rand < sampled_num / torch.sum(cons_pos).clamp_min(1))
-    samp_neg = cons_neg & (rand < sampled_num / torch.sum(cons_neg).clamp_min(1))
+    pf = feat_state.point_features.detach().requires_grad_(True)
+    gate = ScaleGateParams(*(x.detach().requires_grad_(True) for x in gate_params))
+    loss_for_grad, pair_loss, rfn_reg, aux = yield from _block_loss(
+        pf, gate, feat_state, camera, consts, draws, q_scales, gt_corrs, ppw, hyper, config,
+        block, ray_size)
+    with ieee_fp32_matmul():
+        feat_grad, *gate_grads = torch.autograd.grad(loss_for_grad, (pf, *gate))
+    del loss_for_grad
 
-    trig_pos = torch.any((corr < 0.75) & (gt_corrs == 1), dim=0)
-    trig_neg = torch.any((corr > 0.5) & (gt_corrs == 0), dim=0)
-    triu = torch.triu(torch.ones((r, r), dtype=torch.bool, device=corr.device))
-    mask_pos = (samp_pos | trig_pos | inconsistent) & ~eye & triu
-    mask_neg = (samp_neg | trig_neg | inconsistent) & ~eye & triu
-
-    wp = ppw[None] * gt_corrs * corr
-    pos_loss = -torch.sum(wp * mask_pos[None]) / (torch.sum(mask_pos) * s_total).clamp_min(1)
-    wn = ppw[None] * (1 - gt_corrs) * torch.relu(corr)
-    neg_loss = torch.sum(wn * mask_neg[None]) / (torch.sum(mask_neg) * s_total).clamp_min(1)
-    loss = pos_loss + neg_loss + hyper.rfn * rfn_reg
+    feat_grad, *gate_grads, pair_loss = yield collective(
+        "sum", "ray", feat_grad, *gate_grads, pair_loss)
+    loss = pair_loss + hyper.rfn * rfn_reg
+    feat_grad, *gate_grads, loss = yield collective("mean", "data", feat_grad, *gate_grads, loss)
+    (overflow,) = yield collective("max", ("data", "ray"),
+                                   torch.tensor(int(aux["overflow"]), device=loss.device))
+    gate_grads = ScaleGateParams(*gate_grads)
+    aux.update(loss=loss, overflow=bool(overflow))
+    if hyper.debug_grads:
+        aux["feat_grads"] = feat_grad
+        aux["gate_grads"] = gate_grads
 
     with torch.no_grad():
-        is_pos = gt_corrs == 1
-        is_neg = gt_corrs == 0
-        aux = {
-            "rfn": rfn_val.detach(),
-            "cosine_pos": torch.sum(corr * is_pos) / torch.sum(is_pos).clamp_min(1),
-            "cosine_neg": torch.sum(corr * is_neg) / torch.sum(is_neg).clamp_min(1),
-            "overflow": out.overflow,
-        }
-    return loss, aux
+        lr = hyper.feature_lr
+        new_features, new_opt = optim.adam_update(
+            fgm.FeatureParams(feat_grad), feat_state.opt,
+            fgm.FeatureParams(feat_state.point_features), fgm.FeatureParams(lr),
+        )
+        feat_state = feat_state._replace(point_features=new_features.point_features,
+                                         opt=new_opt)
+        new_gate, new_gate_opt = optim.adam_update(
+            gate_grads, gate_opt, gate_params, ScaleGateParams(w=lr, b=lr)
+        )
+    return feat_state, new_gate, new_gate_opt, aux
 
 
 def contrastive_step(
@@ -325,34 +426,8 @@ def contrastive_step(
         if generator is None:
             raise ValueError("contrastive_step needs draws or a generator")
         draws = draw_step(generator, bundle, hyper, feat_state.smooth_map.shape[1])
-    with torch.no_grad():
-        q_scales, gt_corrs = _sample_scales_and_gt(draws, bundle, consts)
-        ppw = _pixel_weights(bundle, draws.ray_idx)  # (R, R)
-
-    pf = feat_state.point_features.detach().requires_grad_(True)
-    gate = ScaleGateParams(*(x.detach().requires_grad_(True) for x in gate_params))
-    with ieee_fp32_matmul():
-        loss, aux = contrastive_loss(pf, gate, feat_state, camera, consts, draws, q_scales,
-                                     gt_corrs, ppw, hyper, config)
-        feat_grad, *gate_grads = torch.autograd.grad(loss, (pf, *gate))
-    gate_grads = ScaleGateParams(*gate_grads)
-    if hyper.debug_grads:
-        aux["feat_grads"] = feat_grad
-        aux["gate_grads"] = gate_grads
-
-    with torch.no_grad():
-        lr = hyper.feature_lr
-        new_features, new_opt = optim.adam_update(
-            fgm.FeatureParams(feat_grad), feat_state.opt,
-            fgm.FeatureParams(feat_state.point_features), fgm.FeatureParams(lr),
-        )
-        feat_state = feat_state._replace(point_features=new_features.point_features,
-                                         opt=new_opt)
-        new_gate, new_gate_opt = optim.adam_update(
-            gate_grads, gate_opt, gate_params, ScaleGateParams(w=lr, b=lr)
-        )
-    aux["loss"] = loss.detach()
-    return feat_state, new_gate, new_gate_opt, aux
+    return run_alone(contrastive_block_step(feat_state, gate_params, gate_opt, camera, bundle,
+                                            consts, draws, hyper, config))
 
 
 @dataclasses.dataclass

@@ -27,6 +27,7 @@ from seganygaussians_torch.ops import losses
 from seganygaussians_torch.ops.binning import suggest_capacity
 from seganygaussians_torch.ops.camera import CameraParams
 from seganygaussians_torch.ops.rasterize import RasterConfig, rasterize
+from seganygaussians_torch.utils import lpips_metric
 
 
 def _render(params: gm.GaussianParams, alive, camera, bg, active_sh_degree, config,
@@ -46,6 +47,30 @@ def _render(params: gm.GaussianParams, alive, camera, bg, active_sh_degree, conf
     )
 
 
+def view_loss_and_grads(
+    state: gm.GaussianState,
+    camera: CameraParams,
+    gt_image: torch.Tensor,  # (H, W, 3) on the state's device
+    bg: torch.Tensor,  # (3,)
+    active_sh_degree: int,
+    hyper: gm.TrainHyper,
+    config: RasterConfig,
+):
+    """One view's loss, (1 − λ)·L1 + λ·(1 − SSIM), and its gradients with
+    respect to the parameters and to the screen-space means (the
+    densification statistic).  Returns (loss, l1, parameter gradients, the
+    means' gradient, radii, overflow), the losses detached."""
+    leaves = [p.detach().requires_grad_(True) for p in state.params]
+    params = gm.GaussianParams(*leaves)
+    ndc0 = torch.zeros((params.xyz.shape[0], 2), device=params.xyz.device, requires_grad=True)
+    out = _render(params, state.alive, camera, bg, active_sh_degree, config, ndc0)
+    l1 = losses.l1_loss(out.color, gt_image)
+    ssim_v = losses.ssim(out.color, gt_image)
+    loss = (1.0 - hyper.lambda_dssim) * l1 + hyper.lambda_dssim * (1.0 - ssim_v)
+    *param_grads, ndc_grad = torch.autograd.grad(loss, leaves + [ndc0])
+    return loss.detach(), l1.detach(), param_grads, ndc_grad, out.radii, out.overflow
+
+
 def train_step(
     state: gm.GaussianState,
     camera: CameraParams,
@@ -59,15 +84,8 @@ def train_step(
 ) -> tuple[gm.GaussianState, dict]:
     """One train iteration.  Returns (new_state, metrics); ``loss``, ``l1``,
     ``n_alive`` and ``nonfinite`` are device tensors, ``overflow`` a bool."""
-    leaves = [p.detach().requires_grad_(True) for p in state.params]
-    params = gm.GaussianParams(*leaves)
-    ndc0 = torch.zeros((params.xyz.shape[0], 2), device=params.xyz.device, requires_grad=True)
-    out = _render(params, state.alive, camera, bg, active_sh_degree, config, ndc0)
-    img = out.color
-    l1 = losses.l1_loss(img, gt_image)
-    ssim_v = losses.ssim(img, gt_image)
-    loss = (1.0 - hyper.lambda_dssim) * l1 + hyper.lambda_dssim * (1.0 - ssim_v)
-    *param_grads, ndc_grad = torch.autograd.grad(loss, leaves + [ndc0])
+    loss, l1, param_grads, ndc_grad, radii, overflow = view_loss_and_grads(
+        state, camera, gt_image, bg, active_sh_degree, hyper, config)
 
     with torch.no_grad():
         # Skip the update wholesale on a non-finite step (a corrupt pose or
@@ -86,8 +104,8 @@ def train_step(
         )
         state = state._replace(params=new_params, opt=new_opt)
         ndc_safe = torch.where(finite, ndc_grad, torch.zeros_like(ndc_grad))
-        state = gm.add_densification_stats(state, ndc_safe, out.radii)
-        metrics = {"loss": loss.detach(), "l1": l1.detach(), "overflow": out.overflow,
+        state = gm.add_densification_stats(state, ndc_safe, radii)
+        metrics = {"loss": loss, "l1": l1, "overflow": overflow,
                    "n_alive": gm.num_alive(state), "nonfinite": ~finite}
     return state, metrics
 
@@ -214,19 +232,42 @@ class SceneTrainer:
                     self.on_eval(self, it, m)
         return self.state
 
-    @torch.no_grad()
-    def _eval_view(self, cam) -> tuple[float, float]:
-        out = _render(self.state.params, self.state.alive, cam.params, self.bg,
-                      self.active_sh_degree, self.config)
-        img = torch.clamp(out.color, 0.0, 1.0)
-        gt = self._to_device(cam.image)
-        return float(losses.l1_loss(img, gt)), float(losses.psnr(img, gt))
+    def _eval_view(self, cam):
+        """(l1, psnr, the clamped render) of one view."""
+        return _eval_step(self.state, cam.params, self._to_device(cam.image), self.bg,
+                          self.active_sh_degree, self.config)
 
     def psnr_on(self, cameras) -> float:
         """Mean PSNR over views."""
-        return float(np.mean([self._eval_view(cam)[1] for cam in cameras]))
+        return float(np.mean([float(self._eval_view(cam)[1]) for cam in cameras]))
 
-    def eval_report(self, cameras) -> dict:
-        """Held-out L1 and PSNR, one render per view (LPIPS is not ported)."""
-        l1s, psnrs = zip(*(self._eval_view(cam) for cam in cameras))
-        return {"l1": float(np.mean(l1s)), "psnr": float(np.mean(psnrs))}
+    def eval_report(self, cameras, with_lpips: bool = False, lpips_net=None) -> dict:
+        """Held-out L1 and PSNR, one render per view, and LPIPS when asked
+        for: ``lpips`` is None when the ``lpips`` package is missing (and
+        ``lpips_net``, a stand-in network, is not given)."""
+        use_lpips = with_lpips and (lpips_net is not None or lpips_metric.lpips_available())
+        if use_lpips and lpips_net is None:
+            lpips_net = lpips_metric.load_net("alex", self.device)
+        l1s, psnrs, lps = [], [], []
+        for cam in cameras:
+            l1, psnr, img = self._eval_view(cam)
+            l1s.append(float(l1))
+            psnrs.append(float(psnr))
+            if use_lpips:
+                lps.append(lpips_metric.lpips(img, self._to_device(cam.image), net=lpips_net))
+        out = {"l1": float(np.mean(l1s)), "psnr": float(np.mean(psnrs))}
+        if with_lpips:
+            out["lpips"] = float(np.mean(lps)) if use_lpips else None
+        return out
+
+
+@torch.no_grad()
+def _render_image(state: gm.GaussianState, camera, bg, active_sh_degree, config) -> torch.Tensor:
+    return _render(state.params, state.alive, camera, bg, active_sh_degree, config).color
+
+
+@torch.no_grad()
+def _eval_step(state: gm.GaussianState, camera, gt, bg, active_sh_degree, config):
+    """(L1, PSNR, the render clamped to [0, 1]) of one view against ``gt``."""
+    img = torch.clamp(_render_image(state, camera, bg, active_sh_degree, config), 0.0, 1.0)
+    return losses.l1_loss(img, gt), losses.psnr(img, gt), img

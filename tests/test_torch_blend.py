@@ -84,6 +84,31 @@ def test_blend_matches_jax(rng, c, jax_impl):
     _assert_blend_close(got, want)
 
 
+@pytest.mark.parametrize("jax_impl", ["xla", "pallas_interpret"])
+def test_blend_more_than_32_channels_matches_jax(rng, jax_impl):
+    """C = 40, which the Pallas kernel pads to a multiple of 8 and the card
+    runs in two groups (32 + 8): the port's plain blend within 1e-5 of the
+    JAX package's XLA blend, and within the tolerances the Pallas kernel is
+    held to (its scan's float32 products differ from a float64 sum by up to
+    1.2e-5 in final_t here) of the Pallas kernel."""
+    a, grid = _binned_inputs(rng, 40)
+    fn = jblend.blend if jax_impl == "xla" else blend_pallas.blend
+    want = fn(
+        *(jnp.asarray(a[k]) for k in ("gauss_id", "tile_id", "tile_starts", "means2d",
+                                      "conics", "opacities", "colors", "bg")),
+        *grid,
+    )
+    got = _torch_blend(a, grid)
+    assert got.tiles.shape[-1] == 40 and int(np.asarray(want.n_contrib).max()) > 3
+    if jax_impl == "pallas_interpret":
+        _assert_blend_close(got, want)
+        return
+    np.testing.assert_allclose(got.tiles.numpy(), np.asarray(want.tiles), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got.final_t.numpy(), np.asarray(want.final_t), atol=1e-5,
+                               rtol=0)
+    np.testing.assert_array_equal(got.n_contrib.numpy(), np.asarray(want.n_contrib))
+
+
 @pytest.mark.parametrize("nan_column", [0, 2, 3])
 def test_plain_blend_skips_a_nan_power_as_jax_does(nan_column):
     """A NaN mean or conic gives a NaN power.  Both plain versions keep an

@@ -213,6 +213,80 @@ def test_instance_names_count_launches_by_instance(c, tile_size, name):
     assert int(name.split(",")[0][2:]) == blend_cuda.instance_channels(c)
 
 
-def test_more_than_32_channels_have_no_instance():
+@pytest.mark.parametrize("c, groups, names", [
+    (33, [(0, 32), (32, 33)], ["C=32", "C=8"]),
+    (40, [(0, 32), (32, 40)], ["C=32", "C=8"]),
+    (64, [(0, 32), (32, 64)], ["C=32", "C=32"]),
+    (100, [(0, 32), (32, 64), (64, 96), (96, 100)], ["C=32", "C=32", "C=32", "C=4"]),
+])
+def test_more_than_32_channels_have_no_instance(c, groups, names):
+    """No instance runs more than 32 channels: such a count runs in groups of
+    32 and a last group of the rest, each on the instance of its width."""
     with pytest.raises(ValueError, match="1..32 channels"):
-        blend_cuda.instance_name(33, 16)
+        blend_cuda.instance_name(c, 16)
+    assert blend_cuda.channel_groups(c) == groups
+    assert [blend_cuda.instance_name(hi - lo, 16) for lo, hi in groups] == names
+    assert blend_cuda.channel_groups(32) == [(0, 32)]
+
+
+class _PlainForward(blend_cuda.ForwardKernel):
+    """The forward wrapper with each group's launch replaced by the plain
+    blend on CPU tensors; counts groups by instance."""
+
+    def _check(self, tensors, dtypes, device):
+        pass
+
+    def _group(self, gauss_s, tile_starts, table, bg, grid_x, tile_size):
+        c = table.shape[1] - 6
+        assert c <= 32
+        name = blend_cuda.instance_name(c, tile_size)
+        self.launches_by_instance[name] = self.launches_by_instance.get(name, 0) + 1
+        out = _plain_forward(gauss_s, tile_starts, table, bg, grid_x, tile_size)
+        return out.tiles, out.final_t, out.n_contrib
+
+
+class _PlainBackward(blend_cuda.BackwardKernel):
+    def _check(self, tensors, dtypes, device):
+        pass
+
+    def _group(self, gauss_s, tile_starts, table, bg, g_tiles, g_final_t, tiles, final_t,
+               grid_x, tile_size):
+        assert table.shape[1] - 6 <= 32
+        grid = (grid_x, (tile_starts.shape[0] - 1) // grid_x, tile_size)
+        return blend_cuda.blend_backward_plain(gauss_s, tile_starts, table, bg, g_tiles,
+                                               g_final_t, grid)[0]
+
+
+def _plain_forward(gauss_s, tile_starts, table, bg, grid_x, tile_size):
+    from seganygaussians_torch.ops import blend as tblend
+
+    starts = tile_starts.long()
+    num_tiles = starts.shape[0] - 1
+    tile_s = torch.repeat_interleave(torch.arange(num_tiles), starts[1:] - starts[:-1])
+    return tblend.blend(gauss_s[:int(starts[-1])], tile_s, tile_starts, table[:, 0:2],
+                        table[:, 2:5], table[:, 5], table[:, 6:], bg, grid_x,
+                        num_tiles // grid_x, tile_size)
+
+
+@pytest.mark.parametrize("c", [40, 64])
+def test_channel_groups_give_the_whole_blend(rng, c):
+    """The wrappers' split of C > 32 into groups, with each group's launch
+    replaced by the plain version: the forward's tiles, final_t and
+    n_contrib, and the backward's d_table (the geometry rows summed over the
+    groups, g_final_t counted once), equal the plain version on all C
+    channels."""
+    a, grid = _binned_inputs(rng, c)
+    gauss_s, starts = t(a["gauss_id"]).long(), t(a["tile_starts"])
+    table, bg = t(_table(a)), t(a["bg"])
+    fwd = _PlainForward()
+    got = fwd(gauss_s, starts, table, bg, grid[0], grid[2])
+    want = _plain_forward(gauss_s, starts, table, bg, grid[0], grid[2])
+    assert fwd.launches_by_instance["C=32"] == c // 32
+    torch.testing.assert_close(got[0], want.tiles, atol=1e-6, rtol=0)
+    assert torch.equal(got[1], want.final_t) and torch.equal(got[2], want.n_contrib)
+    g_tiles, g_final_t = (t(x) for x in cotangents(c, grid[0] * grid[1], grid[2] ** 2, c))
+    d_table = _PlainBackward()(gauss_s, starts, table, bg, g_tiles, g_final_t, got[0], got[1],
+                               grid[0], grid[2])
+    want_d = blend_cuda.blend_backward_plain(gauss_s, starts, table, bg, g_tiles, g_final_t,
+                                             grid)[0]
+    assert_cols_close(d_table.numpy(), want_d.numpy(), "d_table", tol=1e-5)

@@ -146,23 +146,163 @@ def test_rasterize_on_card_matches_cpu(cuda, with_depth):
 
 @pytest.mark.cuda
 def test_kernel_refuses_what_it_cannot_run(cuda):
-    """More than 32 channels, and tiles other than 8, 16 and 32, raise on
-    the card; nothing falls back to the plain version."""
+    """Tiles other than 8, 16 and 32 raise on the card; nothing falls back
+    to the plain version.  C = 33, which raised before the kernels ran more
+    than 32 channels in groups, now goes through them (32 + 1 channels)."""
     camera, s = scene(3, n=60, c=33)
     d = {k: v.to(cuda) for k, v in s.items()}
-    with pytest.raises(ValueError, match="at most 32 channels, got C=33"):
-        rasterize(d["means"], d["opac"], camera, colors=d["colors"], scales=d["scales"],
-                  rotations=d["quats"], config=RasterConfig(capacity=1 << 12))
+    before = dict(blend_cuda.FORWARD.launches_by_instance)
+    out = rasterize(d["means"], d["opac"], camera, colors=d["colors"], scales=d["scales"],
+                    rotations=d["quats"], config=RasterConfig(capacity=1 << 12))
+    torch.cuda.synchronize()
+    after = blend_cuda.FORWARD.launches_by_instance
+    assert [after.get(k, 0) - before.get(k, 0) for k in ("C=32", "C=8")] == [1, 1]
+    want = rasterize(s["means"], s["opac"], camera, colors=s["colors"], scales=s["scales"],
+                     rotations=s["quats"], config=RasterConfig(capacity=1 << 12))
+    torch.testing.assert_close(out.color.cpu(), want.color, atol=1e-4, rtol=0)
     gauss_s, _, starts, table = _binned(s, camera, 33)
     g = torch.zeros((24, 256, 33))
-    with pytest.raises(ValueError, match="at most 32 channels, got C=33"):
-        blend_cuda.BACKWARD(*(x.to(cuda).contiguous() for x in (
-            gauss_s, starts, table, s["bg"], g, g[..., 0], g, g[..., 0])), 6, 16)
+    d_table = blend_cuda.BACKWARD(*(x.to(cuda).contiguous() for x in (
+        gauss_s, starts, table, s["bg"], g, g[..., 0], g, g[..., 0])), 6, 16)
+    assert d_table.shape == table.shape and not d_table.any()
     camera, s = scene(3, n=60, c=3)
     d = {k: v.to(cuda) for k, v in s.items()}
     with pytest.raises(ValueError, match="tile_size 12 unsupported"):
         rasterize(d["means"], d["opac"], camera, colors=d["colors"], scales=d["scales"],
                   rotations=d["quats"], config=RasterConfig(capacity=1 << 12, tile_size=12))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [40, 64])
+def test_more_than_32_channels_run_in_groups(cuda, c):
+    """C = 40 and 64 on a whole small frame: the forward and backward in
+    groups of at most 32 (one launch a group) against the plain versions at
+    the card tolerances; final_t and n_contrib are the same in every group."""
+    camera, s = scene(c, c=c)
+    grid = GRIDS[16]
+    num_tiles, p = grid[0] * grid[1], 256
+    gauss_s, tile_s, starts, table = _binned(s, camera, c, grid)
+    n = table.shape[0]
+    want = tblend.blend(gauss_s.clamp_max(n - 1), tile_s, starts, table[:, 0:2], table[:, 2:5],
+                        table[:, 5], table[:, 6:], s["bg"], *grid)
+    dev = [x.to(cuda) for x in (gauss_s, starts, table, s["bg"])]
+    before = dict(blend_cuda.FORWARD.launches_by_instance)
+    got = blend_cuda.FORWARD(*dev, grid[0], 16)
+    torch.cuda.synchronize()
+    after = blend_cuda.FORWARD.launches_by_instance
+    groups = blend_cuda.channel_groups(c)
+    assert sum(after.get(k, 0) - before.get(k, 0) for k in after) == len(groups)
+    assert after["C=32"] - before.get("C=32", 0) == c // 32
+    _assert_close(got, want)
+    for lo, hi in groups[1:]:
+        alone = blend_cuda.FORWARD(dev[0], dev[1], torch.cat([dev[2][:, :6],
+                                   dev[2][:, 6 + lo:6 + hi]], 1).contiguous(),
+                                   dev[3][lo:hi].contiguous(), grid[0], 16)
+        assert torch.equal(alone[1], got[1]) and torch.equal(alone[2], got[2])
+    rng = np.random.default_rng(c)
+    g_tiles = torch.tensor(rng.normal(size=(num_tiles, p, c)), dtype=torch.float32)
+    g_final_t = torch.tensor(rng.normal(size=(num_tiles, p)), dtype=torch.float32)
+    want_g = blend_cuda.blend_backward_plain(gauss_s, starts, table, s["bg"], g_tiles,
+                                             g_final_t, grid)
+    before = blend_cuda.BACKWARD.launches
+    got_g = blend_cuda.blend_backward(*dev, got[0], got[1], g_tiles.to(cuda),
+                                      g_final_t.to(cuda), grid[0], 16)
+    torch.cuda.synchronize()
+    assert blend_cuda.BACKWARD.launches == before + len(groups)
+    _assert_cols_close(got_g[0], want_g[0])
+    _assert_bg_close(got_g[1], want_g[1], chip_smoke.bg_terms(g_tiles, got[1].cpu()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", ["rows", "sortfree"])
+@pytest.mark.parametrize("c", [3, 32])
+def test_raster_plans_on_card_match_cpu(cuda, plan, c):
+    """The row-footprint and sort-free plans on the card (both kernels)
+    against the CPU (the plain version): the frame at the forward's
+    tolerances and the gradients within 2e-4 of each array's largest
+    value."""
+    camera, s = scene(c + 30, c=c)
+    cfg = RasterConfig(capacity=1 << 14, row_footprints=plan == "rows",
+                       backend="cuda_sortfree" if plan == "sortfree" else "auto")
+    outs, grads = {}, {}
+    for dev in ("cpu", cuda):
+        d = {k: v.detach().clone().to(dev).requires_grad_(k in ("opac", "colors", "means"))
+             for k, v in s.items()}
+        before = blend_cuda.BACKWARD.launches
+        out = rasterize(d["means"], d["opac"], camera, colors=d["colors"], scales=d["scales"],
+                        rotations=d["quats"], bg=d["bg"], config=cfg)
+        (out.color.square().sum() + out.final_t.sum()).backward()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert blend_cuda.BACKWARD.launches == before + 1
+        outs[str(dev)] = out
+        grads[str(dev)] = [d[k].grad for k in ("means", "opac", "colors")]
+    a, b = outs["cpu"], outs[str(cuda)]
+    torch.testing.assert_close(b.color.detach().cpu(), a.color.detach(), atol=1e-4, rtol=0)
+    torch.testing.assert_close(b.final_t.detach().cpu(), a.final_t.detach(), atol=5e-5, rtol=0)
+    assert torch.equal(b.n_contrib.cpu(), a.n_contrib)
+    for ga, gb in zip(grads["cpu"], grads[str(cuda)]):
+        scale = float(ga.abs().max()) + 1e-6
+        torch.testing.assert_close(gb.cpu() / scale, ga / scale, atol=2e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_dp_step_on_nccl_at_world_size_one(cuda):
+    """One ``make_dp_train_step`` on a real NCCL process group of one rank
+    equals the same step run in turn (no process group), and it launched
+    both kernels."""
+    import socket
+
+    import torch.distributed as dist
+
+    from seganygaussians_torch.models import gaussians as gm
+    from seganygaussians_torch.parallel import data_parallel
+    from seganygaussians_torch.parallel.mesh import Layout, initialize_distributed, make_mesh
+
+    rng = np.random.default_rng(0)
+    n = 200
+    pts = np.stack([rng.uniform(-0.5, 0.5, n), rng.uniform(-0.5, 0.5, n),
+                    3 + rng.uniform(-0.3, 0.3, n)], 1).astype(np.float32)
+    state = gm.create_from_points(pts, rng.uniform(size=(n, 3)).astype(np.float32), 0, 256,
+                                  device=cuda)
+    cam = make_camera(np.eye(3), np.zeros(3), fovx=0.9, fovy=0.7, width=64, height=48)
+    batch, template = data_parallel.stack_cameras([cam])
+    gts = torch.tensor(rng.uniform(size=(1, 48, 64, 3)), dtype=torch.float32, device=cuda)
+    bg = torch.zeros(3, device=cuda)
+    args = (gm.TrainHyper(), RasterConfig(capacity=1 << 14), 2.0, 0)
+    want = data_parallel.make_dp_train_step(Layout(("data",), (1,)), template, *args)(
+        state, batch, gts, bg, 1)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    initialize_distributed("cuda", init_method=f"tcp://localhost:{port}", world_size=1, rank=0,
+                           timeout_s=60)
+    try:
+        assert dist.get_backend() == "nccl"
+        fwd, bwd = blend_cuda.FORWARD.launches, blend_cuda.BACKWARD.launches
+        got = data_parallel.make_dp_train_step(make_mesh(1), template, *args)(
+            state, batch, gts, bg, 1)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    assert blend_cuda.FORWARD.launches == fwd + 1 and blend_cuda.BACKWARD.launches == bwd + 1
+    assert abs(float(got[1]) - float(want[1])) <= 1e-6
+    assert float((got[0].params.xyz - state.params.xyz).abs().max()) > 0
+    # The gradient, to tell which coordinates' first Adam step the atomics'
+    # rounding may turn round (``chip_smoke.adam_step_error``).
+    from seganygaussians_torch.ops import losses
+
+    xyz = state.params.xyz.detach().requires_grad_(True)
+    p = state.params._replace(xyz=xyz)
+    out = rasterize(xyz, gm.get_opacity(p)[:, 0], cam, shs=gm.get_shs(p), sh_degree=0,
+                    scales=gm.get_scaling(p), rotations=gm.get_rotation(p), bg=bg,
+                    active_mask=state.alive, config=args[1])
+    hyper = args[0]
+    loss = ((1 - hyper.lambda_dssim) * losses.l1_loss(out.color, gts[0])
+            + hyper.lambda_dssim * (1 - losses.ssim(out.color, gts[0])))
+    (g_xyz,) = torch.autograd.grad(loss, [xyz])
+    err, _ = chip_smoke.adam_step_error(got[0].params.xyz, want[0].params.xyz, g_xyz)
+    assert err <= 1e-6
 
 
 @pytest.mark.cuda

@@ -147,10 +147,24 @@ def test_preprocess_matches(rng, case):
     assert valid.sum() > 100 and (~valid).sum() >= 20
 
 
-def test_preprocess_row_footprints_not_ported(rng):
-    camera, means, scales, quats, opac, _ = make_scene(rng, n=8)
-    with pytest.raises(NotImplementedError, match="Remainder"):
-        tproj.preprocess(
-            t(means), torch_camera(camera), scales=t(scales), rotations=t(quats),
-            opacities=t(opac), row_footprints=True,
-        )
+@pytest.mark.parametrize("tile_size", [16, 8])
+def test_preprocess_row_footprints_not_ported(rng, tile_size):
+    """Kept under its old name: the row footprints are ported now, and
+    ``preprocess(row_footprints=True)`` matches the JAX package's, the
+    per-row intervals (``row_pack``) and their tile count exactly."""
+    camera, means, scales, quats, opac, _ = make_scene(rng, n=200, width=96, height=64)
+    # Strongly anisotropic footprints, where rows cut the most.
+    scales[:, 1] *= 0.2
+    means[:10, 2] = rng.uniform(-1.0, 0.15, 10)
+    kw = dict(tile_size=tile_size, row_footprints=True)
+    a = jproj.preprocess(jnp.asarray(means), camera, scales=jnp.asarray(scales),
+                         rotations=jnp.asarray(quats), opacities=jnp.asarray(opac), **kw)
+    b = tproj.preprocess(t(means), torch_camera(camera), scales=t(scales), rotations=t(quats),
+                         opacities=t(opac), **kw)
+    for name in ("valid", "row_pack", "tiles_touched", "rect_min", "rect_max"):
+        np.testing.assert_array_equal(getattr(b, name).numpy(), np.asarray(getattr(a, name)),
+                                      err_msg=name)
+    rect = (b.rect_max - b.rect_min).prod(dim=1)
+    assert int(b.tiles_touched.sum()) < int(rect[b.valid].sum())
+    assert tproj.preprocess(t(means), torch_camera(camera), scales=t(scales),
+                            rotations=t(quats), row_footprints=True).row_pack is None
