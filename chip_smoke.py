@@ -56,10 +56,12 @@ phase 9):
 7. The scan micro-benchmark kernel (``csrc/scan_variants.cu``) through the
    tool's ``run``: every variant at 1000 chunks on the (256, 256) block,
    held against ``scan_variants_plain`` to 1e-4 relative; µs per chunk, the
-   bound of the function's operations at the whole card's rate (the same for
-   every variant that computes T_before; beside it, scaled to the SMs the
-   variant's grid fills), the feedback chain's latency floor (an estimate),
-   and ``torch.cumprod``'s time.
+   work launch's blocks, the bound of the function's operations at the
+   whole card's rate (the same for every variant that computes T_before),
+   the chain launch timed alone (the measured floor, beside its estimate)
+   and each variant's share of max(bound, chain), and ``torch.cumprod``'s
+   time; log_tri_hs at most a tenth of log_tri's distance to the fp32
+   plain version; ``HGMMA`` in the library's SASS where ``cuobjdump`` is.
 8. ``contrastive_step`` at full width: phase 2's 3M Gaussians as a
    ``FeatureState`` (32-dim features, K = 16 smoothing with dropout 0.5, 1000
    rays, the CLI's defaults) against seeded synthetic mask stacks (24 discs
@@ -1258,9 +1260,30 @@ def phase_train_cli(device, card, tmp) -> None:
     print(f"phase 6: the saved PLY rendered through cli/render.py: {n_png} PNGs")
 
 
+def sass_line(tool) -> str:
+    """Whether the built scan library's SASS holds HGMMA (wgmma), from
+    ``cuobjdump -sass`` on the PATH or beside nvcc; says so when there is
+    none."""
+    from seganygaussians_torch.ops.blend_cuda import _find_nvcc
+
+    cuobjdump = shutil.which("cuobjdump")
+    if cuobjdump is None:
+        beside = os.path.join(os.path.dirname(_find_nvcc()), "cuobjdump")
+        cuobjdump = beside if os.path.exists(beside) else None
+    if cuobjdump is None:
+        return "cuobjdump is not on the PATH or beside nvcc: HGMMA not checked"
+    lib = tool.SCAN.build()
+    out = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                         timeout=120)
+    check(out.returncode == 0, f"cuobjdump -sass failed: {out.stderr[-2000:]}")
+    n = out.stdout.count("HGMMA")
+    check(n > 0, f"no HGMMA in the SASS of {lib.name}: log_tri is not on wgmma")
+    return f"{n} HGMMA instructions in the SASS of {lib.name} ({cuobjdump})"
+
+
 def phase_scan(device, card) -> tuple[list, float]:
     """The scan micro-benchmark kernel through the tool's ``run``, each
-    variant held against the plain version."""
+    variant held against the plain version and beside its chain launch."""
     from seganygaussians_torch.tools import bench_scan_variants as tool
 
     n_chunk = tool.N_CHUNK
@@ -1272,10 +1295,16 @@ def phase_scan(device, card) -> tuple[list, float]:
     torch.cuda.synchronize()
     launches = {v: tool.SCAN.launches_of(v) for v in tool.VARIANTS}
     # ---
+    # The chain launched alone, each kind: the measured floor.
+    chain_us = {v: tool.chain_us(v, n_chunk, device) for v in ("roll_lane", "roll_sub")}
     library_us = {1: tool.cumprod_library_us(device, dim=1),
                   0: tool.cumprod_library_us(device, dim=0)}
-    entries, worst = [], 0.0
+    entries, worst, dist = [], 0.0, {}
     low, high = tool.latency_floor_us()
+    print(f"phase 7: the chain launched alone (the measured floor): "
+          f"{chain_us['roll_lane']:.4f} us/chunk for the five row variants (estimate "
+          f"{low:.4f}-{high:.4f} from its instructions), {chain_us['roll_sub']:.4f} us/chunk "
+          f"for roll_sub's column-0 scan  [{card}]")
     for v in tool.VARIANTS:
         us, out = runs[v]
         check(launches[v] > 0, f"scan variant {v} was not launched")
@@ -1291,17 +1320,25 @@ def phase_scan(device, card) -> tuple[list, float]:
         tool.scan_variants_plain(s, v, n_chunk, tf32=True)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
+        if v in ("log_tri", "log_tri_hs"):
+            if not dist:
+                fp32 = tool.scan_variants_plain(s, "log_tri", n_chunk)  # no TF32 rounding
+            dist[v] = float(((out - fp32).abs() / fp32.abs().clamp_min(1e-30)).max())
         bound_us = tool.bound_us(v)
-        grid_us, sms = tool.bound_us_on_grid_sms(v)
+        chain = chain_us["roll_sub" if v in tool.SCAN_CHAIN else "roll_lane"]
+        floor = max(bound_us, chain)
+        blocks = tool.SCAN.grid_blocks(v, n_chunk)  # the grid the library launches
+        check(blocks >= tool.NUM_SMS, f"scan variant {v}: work grid of {blocks} blocks leaves "
+              f"SMs of the {tool.NUM_SMS} idle")
         # exp_only takes no cumulative product: no library call computes it.
         lib_us = None if v == "exp_only" else library_us[0 if v == "roll_sub" else 1]
         lib_txt = "none" if lib_us is None else f"{lib_us:.3f} us/call"
-        print(f"phase 7: {v:11s} {us:8.3f} us/chunk ({tool.P}x{tool.K}, {n_chunk} chunks, "
-              f"{launches[v]} launches), bound {bound_us:.4f} us by the function's operations "
-              f"on the card "
-              f"({grid_us:.4f} us on the {sms} of {tool.NUM_SMS} SMs its grid fills), plain {plain_ms / n_chunk * 1e3:.1f} us/chunk (no yardstick "
-              f"of speed), torch.cumprod {lib_txt}; max |kernel - plain| {err:.3g} "
-              f"({rel:.3g} relative)  [{card}]")
+        print(f"phase 7: {v:11s} {us:8.4f} us/chunk ({tool.P}x{tool.K}, {n_chunk} chunks, "
+              f"{launches[v]} launches; work grid {blocks} blocks on {tool.NUM_SMS} SMs), bound "
+              f"{bound_us:.4f} us by the function's operations on the card, chain {chain:.4f} "
+              f"us measured: {floor / us:.1%} of max(bound, chain); plain "
+              f"{plain_ms / n_chunk * 1e3:.1f} us/chunk (no yardstick of speed), torch.cumprod "
+              f"{lib_txt}; max |kernel - plain| {err:.3g} ({rel:.3g} relative)  [{card}]")
         entries.append({
             "name": f"scan_variants[{v}]",
             "route": "cuda",
@@ -1314,16 +1351,15 @@ def phase_scan(device, card) -> tuple[list, float]:
             "bound_ms": bound_us * n_chunk / 1e3,
             "bound_by": "operations",
             "library_ms": None if lib_us is None else lib_us * n_chunk / 1e3,
-            "bound_ms_on_grid_sms": grid_us * n_chunk / 1e3,
-            "sms": sms,
-            "latency_floor_ms_estimate": [low * n_chunk / 1e3, high * n_chunk / 1e3],
+            "chain_ms": chain * n_chunk / 1e3,
+            "share_of_floor": floor / us,
         })
-    print(f"phase 7: the chunks' feedback chain sets a latency floor of {low:.4f}-{high:.4f} "
-          f"us/chunk (an estimate from its instructions, not a measurement), above every "
-          f"bound  [{card}]")
-    if runs["log_tri"][0] >= runs["log_tri_hs"][0]:
-        print("phase 7: the TF32 tensor-core product (log_tri) is no faster than the fp32 one "
-              "(log_tri_hs) on this card at this size")
+    print(f"phase 7: largest relative distance to the fp32 plain version: log_tri (one TF32 "
+          f"product) {dist['log_tri']:.3g}, log_tri_hs (hi + lo) {dist['log_tri_hs']:.3g}  "
+          f"[{card}]")
+    check(dist["log_tri_hs"] <= dist["log_tri"] / 10,
+          "log_tri_hs is not ten times closer to fp32 than log_tri")
+    print(f"phase 7: {sass_line(tool)}")
     return entries, worst
 
 

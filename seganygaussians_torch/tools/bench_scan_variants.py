@@ -5,35 +5,48 @@ fastest on this card?
     python -m seganygaussians_torch.tools.bench_scan_variants
 
 Counterpart of ``tools/bench_scan_variants.py`` of the JAX package.  All
-variants loop ``n_chunk`` times over a (256, 256) fp32 block that stays in
-registers and shared memory (pure compute, no device-memory traffic), in the
-hand-written kernel ``csrc/scan_variants.cu``:
+variants loop ``n_chunk`` times over a (256, 256) fp32 block, in the
+hand-written kernel ``csrc/scan_variants.cu``.  The chunks are coupled only
+through ``acc[:, 0]``, so a call is three launches: the feedback chain
+(``chain[i, r]``, row r's column-0 state before chunk i: one thread a row, or
+for roll_sub one warp scanning column 0), the work on a grid of (tile, chunk
+range) that fills the card with one partial a range, and the sum of the
+partials in range order.  The work launches:
 
-  exp_only    floor: alpha = min(0.99, exp(s)) and a sum (no scan)
+  exp_only    alpha = min(0.99, exp(s)) and a sum (no scan); a warp a row
   log_tri     log1p → strict-upper-triangular product on the tensor cores
-              (TF32, fp32 accumulate) → exp
-  log_tri_hs  the same product as IEEE fp32 multiply-adds
-  roll_lane   Hillis-Steele product scan along K: warp shuffles, carry across
-              warps through shared memory
-  roll_sub    the same scan along axis 0, stride-doubling passes through
-              shared memory
+              (``wgmma`` m64n64k8 TF32, fp32 accumulate) → exp; a
+              warpgroup on 64 rows
+  log_tri_hs  the same product compensated: hi = tf32(x), lo = tf32(x − hi),
+              two products (the counterpart of the TPU's HIGHEST)
+  roll_lane   Hillis-Steele product scan along K: a warp a row, 8 columns a
+              lane, an in-lane running product and 5 shuffles
+  roll_sub    the same scan along axis 0: a warp owns 8 columns and all 256
+              rows of them, 8 rows a lane
   seq_march   one thread per row marching K in order (the inner loop of
               ``csrc/blend_fwd.cu``); computes roll_lane's function
 
 ``scan_variants_plain`` is the same loop in plain PyTorch for the tests and
-the comparison on the card; the tool's timing never uses it.
+the comparison on the card; ``feedback_chain_plain`` and its range form
+(``chunk_range=``, ``chain=``) repeat the kernel's decomposition on the CPU.
+The tool's timing never uses them.
 
 Two floors stand beside each time.  ``bound_us`` counts the operations of the
 function, the same for every variant that computes T_before, at the card's
-peak rates.  ``latency_floor_us`` is an estimate, not a measurement: chunk
-i's ``exp`` waits on chunk i − 1's ``acc[:, 0]`` (the feedback term), so the
-chunks form one dependent chain of about 40-60 cycles (multiply, add,
-``expf``, ``fminf``, the accumulate, and the hand-over of ``acc[:, 0]``)
-that no design can overlap; at the H100's 1.98 GHz boost clock that is
-0.020-0.030 µs a chunk, 5-8 times ``bound_us``.
+peak rates.  ``chain_us`` measures the chain launch alone: chunk i's ``exp``
+waits on chunk i − 1's ``acc[:, 0]``, a dependent chain no design overlaps
+with itself, and every variant runs it before its work.  ``latency_floor_us``
+is the estimate of that chain from its instructions (40-60 cycles a chunk at
+the boost clock), kept beside the measurement.  ``_median_us_per_chunk``
+times 10 calls a window, so the host's share of a call (its allocations and
+launches) hides behind the card's work; ``tools/compare_scan_kernels.py``
+times two builds of the kernel that way and with one call a window, as the
+tool did before the chain design.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -47,9 +60,13 @@ VARIANTS = ("exp_only", "log_tri", "log_tri_hs", "roll_lane", "roll_sub", "seq_m
 # 67 TFLOP/s, over 132 SMs.
 PEAK_FP32_PER_S = 67e12
 NUM_SMS = 132
-# Thread blocks each variant's grid launches (csrc/scan_variants.cu).
-GRID_BLOCKS = {"exp_only": 256, "log_tri": 16, "log_tri_hs": 256, "roll_lane": 256,
-               "roll_sub": 32, "seq_march": 8}
+# The most chunk ranges of a call, which size the partials' scratch; the
+# kernel checks the count it is given and owns its grid
+# (``ScanKernel.grid_blocks``).
+MAX_RANGES = 33
+# Variants whose chain is column 0's scan down the rows; the others share
+# the row recurrence a <- a + min(0.99, exp(s[r, 0] + 1e-6 a)).
+SCAN_CHAIN = ("roll_sub",)
 # Operations the function needs per element and chunk: (special-function
 # calls, fp32 operations).  A bound counts the function's work, not the
 # variant's way to it, so every variant that computes T_before counts the
@@ -67,6 +84,12 @@ CHAIN_CYCLES = (40, 60)
 BOOST_CLOCK_HZ = 1.98e9
 
 
+def n_ranges(n_chunk: int) -> int:
+    """Chunk ranges (and partials) of a call: one range a chunk up to
+    ``MAX_RANGES``, and one (empty) range for no chunk."""
+    return max(1, min(MAX_RANGES, n_chunk))
+
+
 def round_to_tf32(x: torch.Tensor) -> torch.Tensor:
     """fp32 → TF32 (10 mantissa bits), round to nearest, ties away from zero:
     what ``cvt.rna.tf32.f32`` does to the tensor cores' inputs."""
@@ -74,18 +97,60 @@ def round_to_tf32(x: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
+def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) with hi = tf32(x) and lo = tf32(x − hi): log_tri_hs's two
+    tensor-core operands, whose sum keeps about 21 bits of x."""
+    hi = round_to_tf32(x)
+    return hi, round_to_tf32(x - hi)
+
+
+def _check_variant(variant: str) -> None:
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}; choose from {VARIANTS}")
+
+
+def feedback_chain_plain(s: torch.Tensor, variant: str, n_chunk: int) -> torch.Tensor:
+    """(n_chunk, 256): row r's ``acc[r, 0]`` before chunk i, as the chain
+    launch computes it, on any device.  The five row variants: column 0's
+    T_before is exactly 1, so a <- a + min(0.99, exp(s[r, 0] + 1e-6 a)).
+    roll_sub: column 0's exclusive product down the rows."""
+    _check_variant(variant)
+    s0 = s[:, 0]
+    a = torch.zeros_like(s0)
+    chain = s.new_empty((n_chunk, s.shape[0]))
+    for i in range(n_chunk):
+        chain[i] = a
+        alpha = torch.clamp_max(torch.exp(s0 + a * 1e-6), 0.99)
+        if variant in SCAN_CHAIN:
+            incl = torch.cumprod(1.0 - alpha, dim=0)
+            a = a + alpha * torch.cat([incl.new_ones(1), incl[:-1]])
+        else:
+            a = a + alpha
+    return chain
+
+
 def scan_variants_plain(s: torch.Tensor, variant: str, n_chunk: int,
-                        tf32: bool = False) -> torch.Tensor:
+                        tf32: bool = False, chunk_range: tuple[int, int] | None = None,
+                        chain: torch.Tensor | None = None) -> torch.Tensor:
     """The kernel's function in plain PyTorch, on any device.
 
     ``tf32=True`` rounds log_tri's ``log1p(-alpha)`` to TF32 before the sum,
-    as the kernel's tensor-core product does."""
-    if variant not in VARIANTS:
-        raise ValueError(f"unknown variant {variant!r}; choose from {VARIANTS}")
+    as the kernel's tensor-core product does.  The range form repeats one
+    work block's share: with ``chunk_range=(c0, c1)`` and the feedback
+    ``chain`` (:func:`feedback_chain_plain`) it returns the sum over chunks
+    c0 ≤ i < c1 alone, each chunk's feedback taken from ``chain[i]``; the
+    ranges' partials add up to the whole run."""
+    _check_variant(variant)
+    c0, c1 = (0, n_chunk) if chunk_range is None else chunk_range
+    if chain is None and c0 > 0:
+        raise ValueError("a range that starts after chunk 0 needs the feedback chain")
+    if not 0 <= c0 <= c1 <= n_chunk:
+        raise ValueError(f"chunk range {chunk_range} outside 0..{n_chunk}")
     acc = torch.zeros_like(s)
     ones = torch.ones_like(s)
-    for _ in range(n_chunk):
-        alpha = torch.clamp_max(torch.exp(s + acc[:, :1] * 1e-6), 0.99)
+    for i in range(c0, c1):
+        feedback = acc[:, :1] if chain is None else chain[i][:, None]
+        alpha = torch.clamp_max(torch.exp(s + feedback * 1e-6), 0.99)
         if variant == "exp_only":
             acc = acc + alpha
             continue
@@ -111,20 +176,70 @@ class ScanKernel(_CudaKernel):
     index in ``launches_by_channels``."""
 
     name = "scan_variants"
-    argtypes = [_INT, _PTR, _PTR, _INT, _PTR]
+    argtypes = [_INT, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _PTR]
     count_keys = tuple(range(len(VARIANTS)))
 
-    def __call__(self, s: torch.Tensor, variant: str, n_chunk: int = N_CHUNK) -> torch.Tensor:
-        """Launch one variant on a (256, 256) fp32 CUDA block; returns acc."""
-        if variant not in VARIANTS:
-            raise ValueError(f"unknown variant {variant!r}; choose from {VARIANTS}")
+    def __init__(self):
+        super().__init__()
+        self.chain_launches = dict.fromkeys(VARIANTS, 0)  # the chain launched alone
+
+    def reset_counts(self) -> None:
+        super().reset_counts()
+        self.chain_launches = dict.fromkeys(VARIANTS, 0)
+
+    def library(self):
+        lib = super().library()
+        fn = lib.scan_variants_chain
+        fn.restype = ctypes.c_int
+        fn.argtypes = [_INT, _PTR, _PTR, _INT, _PTR]
+        lib.scan_variants_grid.restype = ctypes.c_int
+        lib.scan_variants_grid.argtypes = [_INT, _INT]
+        return lib
+
+    def grid_blocks(self, variant: str, n_chunk: int = N_CHUNK) -> int:
+        """Thread blocks of the variant's work launch at ``n_chunk`` chunks,
+        from the grid the built library launches."""
+        _check_variant(variant)
+        blocks = self.library().scan_variants_grid(VARIANTS.index(variant), int(n_chunk))
+        if blocks < 0:
+            raise ValueError(f"{self.name}: no work grid for {variant} at {n_chunk} chunks")
+        return blocks
+
+    def _checked(self, s: torch.Tensor, variant: str, n_chunk: int) -> int:
+        _check_variant(variant)
         self._check({"s": s}, {}, s.device)
         if tuple(s.shape) != (P, K):
             raise ValueError(f"{self.name} kernel: s shape {tuple(s.shape)}, needs {(P, K)}")
+        if n_chunk < 0:
+            raise ValueError(f"{self.name} kernel: n_chunk {n_chunk} < 0")
+        return VARIANTS.index(variant)
+
+    def __call__(self, s: torch.Tensor, variant: str, n_chunk: int = N_CHUNK) -> torch.Tensor:
+        """Launch one variant on a (256, 256) fp32 CUDA block; returns acc.
+        The chain table and the partials are scratch of this call."""
+        v = self._checked(s, variant, int(n_chunk))
+        n_range = n_ranges(n_chunk)
+        chain = torch.empty((n_chunk, P), dtype=torch.float32, device=s.device)
+        partial = torch.empty((n_range, P, K), dtype=torch.float32, device=s.device)
         out = torch.empty_like(s)
-        self._launch(VARIANTS.index(variant), 1, s.device, s.data_ptr(), out.data_ptr(),
-                     int(n_chunk))
+        self._launch(v, 1, s.device, s.data_ptr(), out.data_ptr(), chain.data_ptr(),
+                     partial.data_ptr(), int(n_chunk), n_range)
         return out
+
+    def chain(self, s: torch.Tensor, variant: str, n_chunk: int = N_CHUNK) -> torch.Tensor:
+        """The chain launch alone: the (n_chunk, 256) feedback table, counted
+        in ``chain_launches``, not in the variant's launches."""
+        self._checked(s, variant, int(n_chunk))
+        lib = self.library()
+        chain = torch.empty((n_chunk, P), dtype=torch.float32, device=s.device)
+        with torch.cuda.device(s.device):
+            stream = torch.cuda.current_stream(s.device).cuda_stream
+            err = lib.scan_variants_chain(VARIANTS.index(variant), s.data_ptr(),
+                                          chain.data_ptr(), int(n_chunk), stream)
+        if err != 0:
+            raise RuntimeError(f"{self.name} chain launch failed: cudaError {err}")
+        self.chain_launches[variant] += 1
+        return chain
 
     def launches_of(self, variant: str) -> int:
         return self.launches_by_channels[VARIANTS.index(variant)]
@@ -156,39 +271,52 @@ def bound_us(variant: str) -> float:
 
 
 def latency_floor_us() -> tuple[float, float]:
-    """The estimated (low, high) µs per chunk of the feedback chain that ties
-    chunk i to chunk i − 1 (``CHAIN_CYCLES`` at ``BOOST_CLOCK_HZ``): an
-    estimate from the chain's instructions, not a measurement, and the same
-    for every variant."""
+    """The estimated (low, high) µs per chunk of the row variants' feedback
+    chain that ties chunk i to chunk i − 1 (``CHAIN_CYCLES`` at
+    ``BOOST_CLOCK_HZ``): an estimate from the chain's instructions, not a
+    measurement (:func:`chain_us` measures it)."""
     return tuple(c / BOOST_CLOCK_HZ * 1e6 for c in CHAIN_CYCLES)
 
 
-def bound_us_on_grid_sms(variant: str) -> tuple[float, int]:
-    """:func:`bound_us` scaled to the SMs the variant's grid can occupy, and
-    that number of SMs: what the kernel's own launch shape allows it, beside
-    the card's bound.  The gap between the two is the grid's under-occupancy,
-    which belongs to the kernel, not to the bound."""
-    sms = min(GRID_BLOCKS[variant], NUM_SMS)
-    return bound_us(variant) * NUM_SMS / sms, sms
-
-
-def run(variant: str, n_chunk: int = N_CHUNK, device="cuda") -> tuple[float, torch.Tensor]:
-    """(µs per chunk, acc): median of 5 launches after a warm-up, CUDA events."""
-    device = torch.device(device)
-    if device.type != "cuda":
+def _cuda_block(device) -> torch.Tensor:
+    """The seeded block on ``device``, which must be a CUDA device."""
+    if torch.device(device).type != "cuda":
         raise ValueError("the scan benchmark times the CUDA kernel; it needs a CUDA device")
-    s = seeded_block(device)
-    out = SCAN(s, variant, n_chunk)
+    return seeded_block(device)
+
+
+def _median_us_per_chunk(fn, n_chunk: int, device, calls: int = 10
+                         ) -> tuple[float, torch.Tensor]:
+    """(µs per chunk, last result) of ``fn()``: CUDA events around ``calls``
+    calls in a row, median of 5 such windows after a warm-up.  A call is
+    ≈ 0.1 ms on the card, so a single call's window would also hold the
+    host's allocations and launch ahead of it; in a row the host runs ahead
+    of the card."""
+    out = fn()
     torch.cuda.synchronize(device)
     times = []
     for _ in range(5):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        out = SCAN(s, variant, n_chunk)
+        for _ in range(calls):
+            out = fn()
         end.record()
         torch.cuda.synchronize(device)
-        times.append(start.elapsed_time(end))
-    return float(np.median(times)) * 1e3 / n_chunk, out
+        times.append(start.elapsed_time(end) / calls)
+    return float(np.median(times)) * 1e3 / max(n_chunk, 1), out
+
+
+def run(variant: str, n_chunk: int = N_CHUNK, device="cuda") -> tuple[float, torch.Tensor]:
+    """(µs per chunk, acc) of the whole call (chain, work and sum)."""
+    s = _cuda_block(device)
+    return _median_us_per_chunk(lambda: SCAN(s, variant, n_chunk), n_chunk, device)
+
+
+def chain_us(variant: str, n_chunk: int = N_CHUNK, device="cuda") -> float:
+    """µs per chunk of the variant's chain launch alone: the measured floor
+    every call of the variant pays before its work."""
+    s = _cuda_block(device)
+    return _median_us_per_chunk(lambda: SCAN.chain(s, variant, n_chunk), n_chunk, device)[0]
 
 
 def cumprod_library_us(device="cuda", dim: int = 1, iters: int = 200) -> float:
@@ -218,13 +346,16 @@ def main(argv=None) -> int:
         raise RuntimeError("no CUDA device available: the scan benchmark runs on the card")
     print(torch.cuda.get_device_name(torch.device(args.device)))
     low, high = latency_floor_us()
-    print(f"feedback chain between chunks: {low:.3f}-{high:.3f} us/chunk (an estimate from "
-          f"its instructions, not a measurement)")
+    floors = {kind: chain_us(kind, args.n_chunk, args.device) for kind in ("roll_lane", "roll_sub")}
+    print(f"feedback chain, launched alone: {floors['roll_lane']:.4f} us/chunk (row variants; "
+          f"estimate {low:.3f}-{high:.3f}), {floors['roll_sub']:.4f} us/chunk (roll_sub's "
+          f"column-0 scan)")
     for v in VARIANTS:
         us, _ = run(v, args.n_chunk, args.device)
-        grid_us, sms = bound_us_on_grid_sms(v)
-        print(f"{v:12s} {us:8.3f} us/chunk  ({P}x{K})  bound {bound_us(v):.4f} us on the card "
-              f"({grid_us:.4f} us on the grid's {sms} SMs)", flush=True)
+        floor = max(bound_us(v), floors["roll_sub" if v in SCAN_CHAIN else "roll_lane"])
+        print(f"{v:12s} {us:8.3f} us/chunk  ({P}x{K})  bound {bound_us(v):.4f} us on the card, "
+              f"{floor / us:.0%} of max(bound, chain); {SCAN.grid_blocks(v, args.n_chunk)} blocks",
+              flush=True)
     print(f"{'torch.cumprod':12s} {cumprod_library_us(args.device):8.3f} us/call   ({P}x{K})")
     return 0
 

@@ -483,26 +483,106 @@ def test_nan_power_is_skipped_as_jax_does(cuda, nan_column, opacity, tile_size):
 # --------------------------------------------------------------------------
 
 
+SCAN_VARIANTS = ["exp_only", "log_tri", "log_tri_hs", "roll_lane", "roll_sub", "seq_march"]
+
+
+def _relative(got, want):
+    return float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("variant", ["exp_only", "log_tri", "log_tri_hs", "roll_lane",
-                                     "roll_sub", "seq_march"])
+@pytest.mark.parametrize("variant", SCAN_VARIANTS)
 def test_scan_kernel_matches_plain(cuda, variant):
     """csrc/scan_variants.cu against scan_variants_plain on the card, 1e-4
     relative (float32 products in another order; log_tri's plain version
-    rounds to TF32 where the tensor cores do)."""
+    rounds to TF32 where the tensor cores do), at chunk counts that put the
+    ranges' edges in different places and give fewer ranges than the grid
+    has (1, 3), one more chunk than a range multiple (1001)."""
     from seganygaussians_torch.tools import bench_scan_variants as tool
 
     s = tool.seeded_block(cuda)
-    for n_chunk in (3, 200):
+    for n_chunk in (1, 3, 200, 1000, 1001):
         before = tool.SCAN.launches_of(variant)
         got = tool.scan_variants(s, variant, n_chunk)
         torch.cuda.synchronize()
         assert tool.SCAN.launches_of(variant) == before + 1
         want = tool.scan_variants_plain(s, variant, n_chunk, tf32=True)
-        rel = ((got - want).abs() / want.abs().clamp_min(1e-30)).max()
-        assert float(rel) <= 1e-4, (variant, n_chunk, float(rel))
+        assert _relative(got, want) <= 1e-4, (variant, n_chunk, _relative(got, want))
     with pytest.raises(ValueError):
         tool.SCAN(s[:128].contiguous(), variant, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", SCAN_VARIANTS)
+def test_scan_kernel_is_bitwise_repeatable_and_its_chain_matches_plain(cuda, variant):
+    """Two launches give the same bits (partials summed in range order, no
+    atomics), and the chain launch alone equals feedback_chain_plain on the
+    card within 1e-6 relative: the row variants' recurrence is the same fp32
+    operations in the same order, equal bit for bit on an H100; roll_sub's
+    column-0 scan multiplies in the warp's order, torch.cumprod in its own,
+    9.8e-7 apart on an H100 at 1000 chunks (7.2e-7 on the CPU, where both
+    orders run with the CPU's exp).  (The CPU's exp is closer to the
+    true value than the card's expf, 0.45 against 0.96 ulp on this block,
+    and over 1000 chunks the two drift apart by 2.7e-6, so the plain chain
+    runs on the card.)"""
+    from seganygaussians_torch.tools import bench_scan_variants as tool
+
+    s = tool.seeded_block(cuda)
+    assert torch.equal(tool.SCAN(s, variant, 200), tool.SCAN(s, variant, 200))
+    before = tool.SCAN.launches_of(variant)
+    chain = tool.SCAN.chain(s, variant, 1000)
+    torch.cuda.synchronize()
+    assert tool.SCAN.launches_of(variant) == before  # counted apart
+    want = tool.feedback_chain_plain(s, variant, 1000)  # on the card: expf as the kernel's
+    assert chain.shape == (1000, 256)
+    assert _relative(chain, want) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_compensated_tf32_product_is_ten_times_closer_to_fp32(cuda):
+    """log_tri_hs (hi + lo, two TF32 products) against log_tri (one): the
+    largest relative distance to the fp32 plain version, at most a tenth."""
+    from seganygaussians_torch.tools import bench_scan_variants as tool
+
+    s = tool.seeded_block(cuda)
+    fp32 = tool.scan_variants_plain(s, "log_tri", 200)
+    one = _relative(tool.SCAN(s, "log_tri", 200), fp32)
+    two = _relative(tool.SCAN(s, "log_tri_hs", 200), fp32)
+    assert two <= one / 10, (two, one)
+
+
+@pytest.mark.cuda
+def test_scan_work_grid_fills_the_card(cuda):
+    """The work launch's grid, read from the built library: at the tool's
+    1000 chunks every variant has a block for each of the card's 132 SMs or
+    more; with fewer chunks than ranges, one range a chunk."""
+    from seganygaussians_torch.tools import bench_scan_variants as tool
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for v in SCAN_VARIANTS:
+        blocks = tool.SCAN.grid_blocks(v, tool.N_CHUNK)
+        assert blocks >= min(sms, tool.NUM_SMS), (v, blocks)
+        assert tool.SCAN.grid_blocks(v, 3) * tool.n_ranges(tool.N_CHUNK) == blocks * 3
+        assert tool.SCAN.grid_blocks(v, 0) * tool.n_ranges(tool.N_CHUNK) == blocks
+    with pytest.raises(ValueError):
+        tool.SCAN.grid_blocks("roll_lane", -1)
+
+
+@pytest.mark.cuda
+def test_scan_kernel_refuses_what_it_cannot_run(cuda):
+    from seganygaussians_torch.tools import bench_scan_variants as tool
+
+    s = tool.seeded_block(cuda)
+    for bad in (s[:, :128].contiguous(), s.t(), s.double(), s.cpu()):
+        with pytest.raises((ValueError, TypeError)):
+            tool.SCAN(bad, "roll_lane", 1)
+        with pytest.raises((ValueError, TypeError)):
+            tool.SCAN.chain(bad, "roll_lane", 1)
+    with pytest.raises(ValueError):
+        tool.SCAN(s, "bogus", 1)
+    with pytest.raises(ValueError):
+        tool.SCAN(s, "roll_lane", -1)
+    assert torch.equal(tool.SCAN(s, "roll_lane", 0), torch.zeros_like(s))
 
 
 @pytest.mark.cuda

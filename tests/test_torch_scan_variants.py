@@ -7,6 +7,10 @@ plain loop.  1e-5 relative to the block's largest value: float32 products and
 sums of ≤ 256 terms in another order (Hillis-Steele against
 ``torch.cumprod``; ``log1p``/``exp`` of two libraries).  ``seq_march``, which
 the TPU tool does not have, computes ``roll_lane``'s function.
+
+The kernel's decomposition is held here too: ``feedback_chain_plain`` (the
+chain launch's table) against the Pallas kernel's ``acc[:, 0]``, and the
+range partials (one work block's share each) against the whole run.
 """
 
 import functools
@@ -29,8 +33,8 @@ def seeded_block():
     return np.random.default_rng(0).uniform(-8, -0.5, (jtool.P, jtool.K)).astype(np.float32)
 
 
-def jax_kernel(s, variant, monkeypatch):
-    monkeypatch.setattr(jtool, "N_CHUNK", N_CHUNK)  # the module's loop count, for this test
+def jax_kernel(s, variant, monkeypatch, n_chunk=N_CHUNK):
+    monkeypatch.setattr(jtool, "N_CHUNK", n_chunk)  # the module's loop count, for this test
     call = pl.pallas_call(
         functools.partial(jtool.kernel, variant=variant),
         out_shape=jax.ShapeDtypeStruct((jtool.P, jtool.K), jnp.float32),
@@ -92,6 +96,52 @@ def test_tf32_rounding_and_its_effect_on_log_tri():
                        ttool.scan_variants_plain(s, "log_tri_hs", N_CHUNK))
 
 
+@pytest.mark.parametrize("variant", TPU_VARIANTS)
+def test_feedback_chain_plain_matches_the_pallas_kernel(variant, monkeypatch):
+    # chain[i] is acc[:, 0] after i chunks.  1e-6 relative: the row variants'
+    # recurrence is the plain loop's column 0 exactly (T_before is 1 there),
+    # exp of two libraries; roll_sub multiplies column 0's 255 factors with
+    # torch.cumprod, the Pallas kernel in its own order.
+    s = seeded_block()
+    chain = ttool.feedback_chain_plain(torch.from_numpy(s), variant, N_CHUNK).numpy()
+    assert chain.shape == (N_CHUNK, 256)
+    for n in range(N_CHUNK):
+        want = jax_kernel(s, variant, monkeypatch, n_chunk=n)[:, 0]
+        np.testing.assert_allclose(chain[n], want, rtol=1e-6, atol=0)
+    other = "roll_lane" if variant == "roll_sub" else "roll_sub"
+    assert np.abs(chain[2] - ttool.feedback_chain_plain(
+        torch.from_numpy(s), other, N_CHUNK).numpy()[2]).max() > 1e-2
+
+
+@pytest.mark.parametrize("variant", ttool.VARIANTS)
+def test_range_partials_add_up_to_the_whole_run(variant):
+    s = torch.from_numpy(seeded_block())
+    chain = ttool.feedback_chain_plain(s, variant, N_CHUNK)
+    whole = ttool.scan_variants_plain(s, variant, N_CHUNK, tf32=True)
+    parts = [ttool.scan_variants_plain(s, variant, N_CHUNK, tf32=True, chunk_range=r, chain=chain)
+             for r in ((0, 1), (1, 3))]
+    rel = ((parts[0] + parts[1] - whole).abs() / whole.abs().clamp_min(1e-30)).max()
+    assert float(rel) <= 1e-6
+    assert torch.equal(parts[0], ttool.scan_variants_plain(s, variant, 1, tf32=True))
+    with pytest.raises(ValueError):
+        ttool.scan_variants_plain(s, variant, N_CHUNK, chunk_range=(1, 3))  # no chain
+
+
+def test_chunk_range_count():
+    # One chunk range (and partial) a chunk up to 33, and one (empty) range
+    # for no chunk: the partials' scratch the wrapper allocates.
+    assert [ttool.n_ranges(n) for n in (0, 1, 3, 200, 1000, 1001)] == [1, 1, 3, 33, 33, 33]
+
+
+def test_tf32_split_reproduces_fp32_log1p():
+    s = torch.from_numpy(seeded_block())
+    log1m = torch.log1p(-torch.clamp_max(torch.exp(s), 0.99))
+    hi, lo = ttool.split_tf32(log1m)
+    assert torch.equal(hi, ttool.round_to_tf32(hi)) and torch.equal(lo, ttool.round_to_tf32(lo))
+    assert float(((hi + lo - log1m).abs() / log1m.abs()).max()) <= 2.0**-20
+    assert float(((hi - log1m).abs() / log1m.abs()).max()) > 2.0**-13  # hi alone: TF32's 11 bits
+
+
 def test_bound_counts_operations_on_the_sms_the_grid_fills():
     # The bound is the whole card's, whatever grid the kernel chose, and it
     # counts the function's work, not the variant's way to it: 65,536
@@ -106,10 +156,20 @@ def test_bound_counts_operations_on_the_sms_the_grid_fills():
     low, high = ttool.latency_floor_us()
     assert (low, high) == pytest.approx((40 / 1.98e3, 60 / 1.98e3))
     assert low > 2 * max(ttool.bound_us(v) for v in ttool.VARIANTS)
-    # The figure for the SMs the grid fills is a separate, larger one.
-    for v in ttool.VARIANTS:
-        us, sms = ttool.bound_us_on_grid_sms(v)
-        assert sms == min(ttool.GRID_BLOCKS[v], ttool.NUM_SMS)
-        assert us == pytest.approx(ttool.bound_us(v) * 132 / sms) and us >= ttool.bound_us(v)
-    assert ttool.bound_us_on_grid_sms("seq_march")[1] == 8
-    assert ttool.bound_us_on_grid_sms("roll_lane")[0] == ttool.bound_us("roll_lane")
+    # Every work launch fills the card's 132 SMs at the tool's 1000 chunks
+    # (the grid is the built library's, held to that on the card by
+    # test_torch_cuda.py::test_scan_work_grid_fills_the_card), so the
+    # card's bound is also the bound on the SMs the grid fills: 1000 chunks
+    # make the most chunk ranges, and the bound is the whole card's rate.
+    assert ttool.n_ranges(ttool.N_CHUNK) == ttool.MAX_RANGES
+    assert ttool.NUM_SMS == 132
+    assert ttool.PEAK_FP32_PER_S == 67e12
+
+
+def test_kernel_comparison_needs_the_card(tmp_path):
+    # The comparison times two builds of the CUDA kernel; on the CPU it
+    # refuses before it builds anything.
+    from seganygaussians_torch.tools import compare_scan_kernels
+
+    with pytest.raises(ValueError, match="CUDA"):
+        compare_scan_kernels.compare(tmp_path / "scan_variants.cu", 1, device="cpu")
