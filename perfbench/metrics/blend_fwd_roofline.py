@@ -1,0 +1,7 @@
+"""The forward blend kernel's least time for the work these inputs need
+(work/blend.py) over its device time, in percent."""
+from perfbench.readers import roofline_pct
+
+
+def read(ctx):
+    return roofline_pct(ctx, "blend_fwd", "blend_fwd")
