@@ -36,6 +36,7 @@ def main(argv=None):
         ContrastiveTrainer,
     )
     from seganygaussians_torch.utils.reporting import TrainingReporter
+    from seganygaussians_torch.utils.tracing import ProfileWindow
 
     parser = make_contrastive_parser("Contrastive feature training")
     parser.add_argument("--seed", type=int, default=0)
@@ -43,6 +44,8 @@ def main(argv=None):
     parser.add_argument("--raster_capacity", type=int, default=1 << 20)
     parser.add_argument("--target", type=str, default="contrastive_feature")
     parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--trace_out", type=str, default=None,
+                        help="profile iterations 21-30 of the run into this directory")
     args = parser.parse_args(argv)
     device = select_device(args.device)
 
@@ -78,7 +81,14 @@ def main(argv=None):
         config=RasterConfig(capacity=args.raster_capacity, backend=args.backend),
         seed=args.seed,
     )
-    trainer.run(log_every=100)
+    window = ProfileWindow(args.trace_out) if args.trace_out else None
+    if window is not None:
+        trainer.on_iteration = lambda _tr, it, _aux: window.after(it)
+    try:
+        trainer.run(log_every=100)
+    finally:
+        if window is not None:
+            window.close()
     # RFN / pos-cos / neg-cos trajectories → metrics.jsonl + TensorBoard
     reporter = TrainingReporter(cfg.model_path)
     for m in trainer.metrics_history:

@@ -32,6 +32,7 @@ def main(argv=None):
     from seganygaussians_torch.scene import ModelConfig, Scene
     from seganygaussians_torch.train.scene_trainer import SceneTrainer
     from seganygaussians_torch.utils.reporting import TrainingReporter
+    from seganygaussians_torch.utils.tracing import ProfileWindow
 
     parser = make_parser("Scene training")
     add_group(parser, TrainHyper, "Optimization Parameters")
@@ -46,6 +47,8 @@ def main(argv=None):
     parser.add_argument("--port", type=int, default=6009)
     parser.add_argument("--disable_viewer", action="store_true")
     parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--trace_out", type=str, default=None,
+                        help="profile iterations 21-30 of the run into this directory")
     args = parser.parse_args(argv)
 
     device = select_device(args.device)
@@ -81,6 +84,7 @@ def main(argv=None):
     ckpt_at = set(args.checkpoint_iterations)
     ckpt_dir = os.path.join(cfg.model_path, "checkpoints")
     reporter = TrainingReporter(cfg.model_path)
+    window = ProfileWindow(args.trace_out) if args.trace_out else None
 
     gui = None
     if not args.disable_viewer:
@@ -138,6 +142,8 @@ def main(argv=None):
                 ckpt_dir, tr.state, it, extra={"active_sh_degree": tr.active_sh_degree}
             )
             print(f"[ITER {it}] checkpoint {path}")
+        if window is not None:
+            window.after(it - start_iteration)
 
     def on_eval(tr, it, metrics):
         print(f"[ITER {it}] loss={metrics['loss']:.5f} n_alive={int(metrics['n_alive'])} "
@@ -154,6 +160,8 @@ def main(argv=None):
         reporter.close()
         if gui is not None:
             gui.close()
+        if window is not None:
+            window.close()
     scene.gaussians = trainer.state
     print("Training complete.")
     return 0

@@ -21,6 +21,7 @@ import torch
 from seganygaussians_torch.models import optim
 from seganygaussians_torch.ops.knn import knn_map, knn_query_source, mean_sq_dist_to_3nn
 from seganygaussians_torch.ops.transforms import inverse_sigmoid
+from seganygaussians_torch.utils import tracing
 
 
 class FrozenGeometry(NamedTuple):
@@ -147,7 +148,8 @@ def dropout_columns(generator: torch.Generator, k: int, dropout: float) -> Optio
     None (all K) when ``dropout`` ∉ (0, 1)."""
     if not 0.0 < dropout < 1.0:
         return None
-    return torch.randperm(k, generator=generator, device=generator.device)[: int(k * dropout)]
+    with tracing.span("smoothing"):
+        return torch.randperm(k, generator=generator, device=generator.device)[: int(k * dropout)]
 
 
 def smoothed_point_features(
@@ -156,11 +158,12 @@ def smoothed_point_features(
 ) -> torch.Tensor:
     """KNN-smoothed features: L2-normalise, then average over the neighbour
     columns ``cols`` (from :func:`dropout_columns`), or all K if None."""
-    # rsqrt(Σx²+ε) form: finite gradient even for all-zero feature rows.
-    pf = state.point_features
-    normed = pf * torch.rsqrt(torch.sum(pf * pf, dim=-1, keepdim=True) + 1e-12)
-    nbrs = state.smooth_map if cols is None else state.smooth_map[:, cols.to(pf.device)]
-    return torch.mean(normed[nbrs], dim=1)
+    with tracing.span("smoothing"):
+        # rsqrt(Σx²+ε) form: finite gradient even for all-zero feature rows.
+        pf = state.point_features
+        normed = pf * torch.rsqrt(torch.sum(pf * pf, dim=-1, keepdim=True) + 1e-12)
+        nbrs = state.smooth_map if cols is None else state.smooth_map[:, cols.to(pf.device)]
+        return torch.mean(normed[nbrs], dim=1)
 
 
 def smooth_point_features_inplace(state: FeatureState, smoothed_dim: int = 24) -> FeatureState:
@@ -210,13 +213,14 @@ def multi_res_smoothed_features(
     """Sum over levels of (optionally per-point-weighted) K_i-neighbour means
     of the L2-normalised features; differentiable with respect to both
     ``point_features`` and ``smooth_weights``."""
-    pf = state.point_features
-    normed = pf / torch.linalg.norm(pf, dim=-1, keepdim=True).clamp_min(1e-9)
-    out = torch.zeros_like(normed)
-    for i, nbrs in enumerate(maps):
-        level = torch.mean(normed[nbrs], dim=1)
-        out = out + (level if smooth_weights is None else smooth_weights[:, i : i + 1] * level)
-    return out
+    with tracing.span("smoothing"):
+        pf = state.point_features
+        normed = pf / torch.linalg.norm(pf, dim=-1, keepdim=True).clamp_min(1e-9)
+        out = torch.zeros_like(normed)
+        for i, nbrs in enumerate(maps):
+            level = torch.mean(normed[nbrs], dim=1)
+            out = out + (level if smooth_weights is None else smooth_weights[:, i : i + 1] * level)
+        return out
 
 
 def smooth_features(

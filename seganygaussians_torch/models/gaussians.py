@@ -29,6 +29,7 @@ from seganygaussians_torch.ops.transforms import (
     build_rotation,
     inverse_sigmoid,
 )
+from seganygaussians_torch.utils import tracing
 
 
 class GaussianParams(NamedTuple):
@@ -326,10 +327,11 @@ def reset_opacity(state: GaussianState) -> GaussianState:
 
 def segment(state: GaussianState, mask3d: torch.Tensor) -> GaussianState:
     """Restrict the live set to ``mask3d`` (bool over capacity)."""
-    return state._replace(
-        alive=state.alive & mask3d,
-        seg_mask=torch.where(mask3d, state.seg_mask, torch.zeros_like(state.seg_mask)),
-    )
+    with tracing.span("preprocess"):
+        return state._replace(
+            alive=state.alive & mask3d,
+            seg_mask=torch.where(mask3d, state.seg_mask, torch.zeros_like(state.seg_mask)),
+        )
 
 
 def compact(state: GaussianState) -> dict[str, np.ndarray]:

@@ -19,6 +19,8 @@ from typing import Any, NamedTuple
 
 import torch
 
+from seganygaussians_torch.utils import tracing
+
 
 class AdamState(NamedTuple):
     mu: Any  # NamedTuple of tensors like the params
@@ -49,18 +51,19 @@ def adam_update(
 ) -> tuple[Any, AdamState]:
     """One bias-corrected Adam step (torch.optim.Adam semantics, eps outside
     the square root); returns (new_params, new_state)."""
-    count = state.count + 1
-    t = count.to(torch.float32)
-    mu = _map(lambda m, g: b1 * m + (1 - b1) * g, state.mu, grads)
-    nu = _map(lambda v, g: b2 * v + (1 - b2) * g * g, state.nu, grads)
-    bc1 = 1 - b1**t
-    bc2 = 1 - b2**t
+    with tracing.span("optim"):
+        count = state.count + 1
+        t = count.to(torch.float32)
+        mu = _map(lambda m, g: b1 * m + (1 - b1) * g, state.mu, grads)
+        nu = _map(lambda v, g: b2 * v + (1 - b2) * g * g, state.nu, grads)
+        bc1 = 1 - b1**t
+        bc2 = 1 - b2**t
 
-    def step(p, m, v, lr):
-        return p - lr * (m / bc1) / (torch.sqrt(v / bc2) + eps)
+        def step(p, m, v, lr):
+            return p - lr * (m / bc1) / (torch.sqrt(v / bc2) + eps)
 
-    new_params = _map(step, params, mu, nu, lrs)
-    return new_params, AdamState(mu=mu, nu=nu, count=count)
+        new_params = _map(step, params, mu, nu, lrs)
+        return new_params, AdamState(mu=mu, nu=nu, count=count)
 
 
 def _zero_masked(leaf: torch.Tensor, row_mask: torch.Tensor) -> torch.Tensor:

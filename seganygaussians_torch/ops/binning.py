@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from seganygaussians_torch.ops.projection import Preprocessed
+from seganygaussians_torch.utils import tracing
 from seganygaussians_torch.utils.precision import ieee_fp32_matmul
 
 _BUCKET_STEPS = (1.0, 1.25, 1.5, 1.75)
@@ -92,6 +93,10 @@ def _depth_order(prep: Preprocessed) -> _DepthOrder:
     depth_perm = torch.sort(depth_key, stable=True).indices
     tiles = prep.tiles_touched[depth_perm].to(torch.int64)
     cum = torch.cumsum(tiles, dim=0)
+    total = 0
+    if n:
+        with tracing.sync("binning"):
+            total = int(cum[-1])
     return _DepthOrder(
         depth_perm=depth_perm,
         tiles=tiles,
@@ -99,7 +104,7 @@ def _depth_order(prep: Preprocessed) -> _DepthOrder:
         rect_max=prep.rect_max[depth_perm].to(torch.int64),
         cum=cum,
         offsets=cum - tiles,
-        total=int(cum[-1]) if n else 0,
+        total=total,
     )
 
 
@@ -121,18 +126,24 @@ def expand_slots(
 ) -> SlotPlan:
     """Expand Gaussians into slot-order (rank-grouped) tile instances."""
     num_tiles = grid_x * grid_y
-    d = _depth_order(prep)
-    if prep.row_pack is not None:
-        return _expand_slots_rows(prep, d, grid_x, grid_y, capacity)
-    slots, rank, tile = _rect_slots(d, grid_x, capacity)
-    tile = torch.where(slots < d.total, tile, torch.full_like(tile, num_tiles))
-    return SlotPlan(
-        slot_rank=rank,
-        slot_tile=torch.clamp(tile, 0, num_tiles),
-        depth_perm=d.depth_perm,
-        num_instances=min(d.total, capacity),
-        overflow=d.total > capacity,
-    )
+    with tracing.span("binning"):
+        d = _depth_order(prep)
+        if prep.row_pack is not None:
+            plan = _expand_slots_rows(prep, d, grid_x, grid_y, capacity)
+        else:
+            slots, rank, tile = _rect_slots(d, grid_x, capacity)
+            tile = torch.where(slots < d.total, tile, torch.full_like(tile, num_tiles))
+            plan = SlotPlan(
+                slot_rank=rank,
+                slot_tile=torch.clamp(tile, 0, num_tiles),
+                depth_perm=d.depth_perm,
+                num_instances=min(d.total, capacity),
+                overflow=d.total > capacity,
+            )
+    tracing.count("raster.instances", plan.num_instances)
+    tracing.count("raster.capacity", capacity)
+    tracing.count("raster.overflows", plan.overflow)
+    return plan
 
 
 def _expand_slots_rows(
@@ -152,7 +163,10 @@ def _expand_slots_rows(
     heights = torch.where(d.tiles > 0, d.rect_max[:, 1] - d.rect_min[:, 1],
                           torch.zeros_like(d.tiles))
     hcum = torch.cumsum(heights, dim=0)
-    r_total = int(hcum[-1]) if n else 0
+    r_total = 0
+    if n:
+        with tracing.sync("rows"):
+            r_total = int(hcum[-1])
 
     # Level 1: Gaussian → rows (only those within the budget).
     rows = torch.arange(min(r_total, capacity), dtype=torch.int64, device=device)
@@ -169,7 +183,10 @@ def _expand_slots_rows(
     # and, on overflow, the rows past the budget): padding.
     slots = torch.arange(capacity, dtype=torch.int64, device=device)
     ends = soff_r + w_r
-    last = int(ends[-1]) if rows.shape[0] else 0
+    last = 0
+    if rows.shape[0]:
+        with tracing.sync("row_slots"):
+            last = int(ends[-1])
     row = torch.clamp(torch.searchsorted(ends, slots, right=True), 0, max(rows.shape[0] - 1, 0))
     padding = torch.full_like(slots, num_tiles)
     if rows.shape[0]:
@@ -232,72 +249,79 @@ def plan_instances(
     """The sort-free counterpart of :func:`bin_gaussians` (see
     :class:`InstancePlan`).  The histograms' products run in IEEE fp32: a
     count must be exact."""
-    prep = strip_row_footprints(prep)  # destinations decode rects
-    if grid_x >= 1024 or grid_y >= 1024:
-        raise ValueError(f"packed bounds hold 10 bits: grid {grid_x}x{grid_y}")
-    num_tiles = grid_x * grid_y
-    d = _depth_order(prep)
-    n = d.tiles.shape[0]
-    device = d.tiles.device
-    slots, gauss_rank, tile = _rect_slots(d, grid_x, capacity)
-    in_range = slots < d.total
-    tx, ty = tile % grid_x, tile // grid_x
+    with tracing.span("binning"):
+        prep = strip_row_footprints(prep)  # destinations decode rects
+        if grid_x >= 1024 or grid_y >= 1024:
+            raise ValueError(f"packed bounds hold 10 bits: grid {grid_x}x{grid_y}")
+        num_tiles = grid_x * grid_y
+        d = _depth_order(prep)
+        n = d.tiles.shape[0]
+        device = d.tiles.device
+        slots, gauss_rank, tile = _rect_slots(d, grid_x, capacity)
+        in_range = slots < d.total
+        tx, ty = tile % grid_x, tile // grid_x
 
-    # Block histograms of rect coverage: hist[b, ty, tx].
-    contrib = d.tiles > 0
-    nb = -(-n // block)
-    pad = nb * block - n
+        # Block histograms of rect coverage: hist[b, ty, tx].
+        contrib = d.tiles > 0
+        nb = -(-n // block)
+        pad = nb * block - n
 
-    def indicator(axis, size):
-        i = torch.arange(size, device=device)[None, :]
-        ind = ((i >= d.rect_min[:, axis:axis + 1]) & (i < d.rect_max[:, axis:axis + 1])
-               & contrib[:, None]).to(torch.float32)
-        return torch.nn.functional.pad(ind, (0, 0, 0, pad)).reshape(nb, block, size)
+        def indicator(axis, size):
+            i = torch.arange(size, device=device)[None, :]
+            ind = ((i >= d.rect_min[:, axis:axis + 1]) & (i < d.rect_max[:, axis:axis + 1])
+                   & contrib[:, None]).to(torch.float32)
+            return torch.nn.functional.pad(ind, (0, 0, 0, pad)).reshape(nb, block, size)
 
-    with ieee_fp32_matmul():
-        hist = torch.bmm(indicator(1, grid_y).transpose(1, 2), indicator(0, grid_x))
-    hist = hist.reshape(nb, num_tiles).to(torch.int32)
-    base = torch.cumsum(hist, dim=0, dtype=torch.int32)
-    counts = base[-1].clone() if nb else torch.zeros(num_tiles, dtype=torch.int32, device=device)
-    base -= hist  # exclusive over blocks
-    del hist
-    # On overflow the deepest instances are cut; no start points past the buffer.
-    tile_starts = torch.clamp_max(
-        torch.cat([torch.zeros(1, dtype=torch.int64, device=device),
-                   torch.cumsum(counts, dim=0)]), capacity).to(torch.int32)
+        with ieee_fp32_matmul():
+            hist = torch.bmm(indicator(1, grid_y).transpose(1, 2), indicator(0, grid_x))
+        hist = hist.reshape(nb, num_tiles).to(torch.int32)
+        base = torch.cumsum(hist, dim=0, dtype=torch.int32)
+        counts = (base[-1].clone() if nb
+                  else torch.zeros(num_tiles, dtype=torch.int32, device=device))
+        base -= hist  # exclusive over blocks
+        del hist
+        # On overflow the deepest instances are cut; no start points past the buffer.
+        tile_starts = torch.clamp_max(
+            torch.cat([torch.zeros(1, dtype=torch.int64, device=device),
+                       torch.cumsum(counts, dim=0)]), capacity).to(torch.int32)
 
-    # Within-block coverage of the instance's tile by earlier Gaussians.
-    b_i, l_i = gauss_rank // block, gauss_rank % block
-    never = 1023  # x0 = 1023, x1 = 0: covers nothing
+        # Within-block coverage of the instance's tile by earlier Gaussians.
+        b_i, l_i = gauss_rank // block, gauss_rank % block
+        never = 1023  # x0 = 1023, x1 = 0: covers nothing
 
-    def packed(axis):
-        v = torch.where(contrib, d.rect_min[:, axis] | (d.rect_max[:, axis] << 10),
-                        torch.full_like(d.tiles, never))
-        return torch.nn.functional.pad(v, (0, pad), value=never).to(torch.int32).reshape(nb, block)
+        def packed(axis):
+            v = torch.where(contrib, d.rect_min[:, axis] | (d.rect_max[:, axis] << 10),
+                            torch.full_like(d.tiles, never))
+            v = torch.nn.functional.pad(v, (0, pad), value=never)
+            return v.to(torch.int32).reshape(nb, block)
 
-    rowx, rowy = packed(0)[b_i], packed(1)[b_i]  # (M, B)
-    lane = torch.arange(block, device=device)[None, :]
-    cover = ((tx[:, None] >= (rowx & 1023)) & (tx[:, None] < (rowx >> 10))
-             & (ty[:, None] >= (rowy & 1023)) & (ty[:, None] < (rowy >> 10))
-             & (lane < l_i[:, None]))
-    rank_wb = torch.sum(cover, dim=1)
-    del rowx, rowy, cover
+        rowx, rowy = packed(0)[b_i], packed(1)[b_i]  # (M, B)
+        lane = torch.arange(block, device=device)[None, :]
+        cover = ((tx[:, None] >= (rowx & 1023)) & (tx[:, None] < (rowx >> 10))
+                 & (ty[:, None] >= (rowy & 1023)) & (ty[:, None] < (rowy >> 10))
+                 & (lane < l_i[:, None]))
+        rank_wb = torch.sum(cover, dim=1)
+        del rowx, rowy, cover
 
-    base_g = base.reshape(-1)[torch.clamp(b_i * num_tiles + tile, 0, nb * num_tiles - 1)]
-    dest = tile_starts.long()[torch.clamp(tile, 0, num_tiles)] + base_g + rank_wb
-    dest = torch.where(in_range, dest, slots)  # padding slots stay in place
-    keep = dest < capacity
-    sorted_gauss = torch.zeros(capacity, dtype=torch.int64, device=device)
-    sorted_gauss[dest[keep]] = gauss_rank[keep]
-    return InstancePlan(
-        sorted_gauss=sorted_gauss,
-        tile_starts=tile_starts,
-        dest=dest,
-        offsets=d.offsets,
-        depth_perm=d.depth_perm,
-        num_instances=min(d.total, capacity),
-        overflow=d.total > capacity,
-    )
+        base_g = base.reshape(-1)[torch.clamp(b_i * num_tiles + tile, 0, nb * num_tiles - 1)]
+        dest = tile_starts.long()[torch.clamp(tile, 0, num_tiles)] + base_g + rank_wb
+        dest = torch.where(in_range, dest, slots)  # padding slots stay in place
+        keep = dest < capacity
+        sorted_gauss = torch.zeros(capacity, dtype=torch.int64, device=device)
+        sorted_gauss[dest[keep]] = gauss_rank[keep]
+        plan = InstancePlan(
+            sorted_gauss=sorted_gauss,
+            tile_starts=tile_starts,
+            dest=dest,
+            offsets=d.offsets,
+            depth_perm=d.depth_perm,
+            num_instances=min(d.total, capacity),
+            overflow=d.total > capacity,
+        )
+    tracing.count("raster.instances", plan.num_instances)
+    tracing.count("raster.capacity", capacity)
+    tracing.count("raster.overflows", plan.overflow)
+    return plan
 
 
 def sort_instances(
@@ -309,19 +333,20 @@ def sort_instances(
     instance (``n`` for padding), its tile (``num_tiles`` for padding), and
     the (T+1,) int32 range starts.
     """
-    sentinel = num_tiles << 32
-    key = torch.where(
-        slot_tile < num_tiles,
-        (slot_tile.to(torch.int64) << 32) | slot_rank.to(torch.int64),
-        torch.full_like(slot_tile, sentinel, dtype=torch.int64),
-    )
-    key_s = torch.sort(key).values
-    boundaries = torch.arange(num_tiles + 1, dtype=torch.int64, device=key.device) << 32
-    tile_starts = torch.searchsorted(key_s, boundaries, right=False).to(torch.int32)
-    padding = key_s >= sentinel
-    gauss_s = torch.where(padding, torch.full_like(key_s, n), key_s & 0xFFFFFFFF)
-    tile_s = torch.where(padding, torch.full_like(key_s, num_tiles), key_s >> 32)
-    return gauss_s, tile_s, tile_starts
+    with tracing.span("binning"):
+        sentinel = num_tiles << 32
+        key = torch.where(
+            slot_tile < num_tiles,
+            (slot_tile.to(torch.int64) << 32) | slot_rank.to(torch.int64),
+            torch.full_like(slot_tile, sentinel, dtype=torch.int64),
+        )
+        key_s = torch.sort(key).values
+        boundaries = torch.arange(num_tiles + 1, dtype=torch.int64, device=key.device) << 32
+        tile_starts = torch.searchsorted(key_s, boundaries, right=False).to(torch.int32)
+        padding = key_s >= sentinel
+        gauss_s = torch.where(padding, torch.full_like(key_s, n), key_s & 0xFFFFFFFF)
+        tile_s = torch.where(padding, torch.full_like(key_s, num_tiles), key_s >> 32)
+        return gauss_s, tile_s, tile_starts
 
 
 def bin_gaussians(prep: Preprocessed, grid_x: int, grid_y: int, capacity: int) -> Binned:

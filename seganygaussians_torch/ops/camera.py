@@ -16,6 +16,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from seganygaussians_torch.utils import tracing
+
 
 def fov2focal(fov: float, pixels: float) -> float:
     return pixels / (2.0 * math.tan(fov / 2.0))
@@ -116,11 +118,13 @@ class CameraParams:
         return self.height / (2.0 * self.tan_fovy)
 
     def tensors(self, device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """(world_view, full_proj, cam_center) as float32 tensors on ``device``."""
-        return tuple(
-            torch.tensor(np.asarray(a, np.float32), device=device)
-            for a in (self.world_view, self.full_proj, self.cam_center)
-        )
+        """(world_view, full_proj, cam_center) as float32 tensors on ``device``
+        (each copy from pageable host memory waits for the device)."""
+        with tracing.sync("camera", 3):
+            return tuple(
+                torch.tensor(np.asarray(a, np.float32), device=device)
+                for a in (self.world_view, self.full_proj, self.cam_center)
+            )
 
 
 def make_camera(

@@ -24,6 +24,7 @@ import torch
 
 from seganygaussians_torch.ops.camera import CameraParams
 from seganygaussians_torch.ops.transforms import build_covariance_3d
+from seganygaussians_torch.utils import tracing
 
 
 class Preprocessed(NamedTuple):
@@ -200,92 +201,93 @@ def preprocess(
     interval: ``row_pack`` holds the intervals and ``tiles_touched`` counts
     their tiles.
     """
-    if cov3d_precomp is None:
-        if scales is None or rotations is None:
-            raise ValueError("preprocess needs scales and rotations, or cov3d_precomp")
-        cov3d = build_covariance_3d(scales, rotations, scale_modifier)
-    else:
-        cov3d = cov3d_precomp
-
-    world_view, full_proj, _ = camera.tensors(means3d.device)
-    p_proj, p_view = project_points(means3d, world_view, full_proj)
-    depths = p_view[:, 2]
-    in_front = depths > 0.2
-
-    cov2d = compute_cov2d(p_view, cov3d, camera, world_view)
-    det = cov2d[:, 0] * cov2d[:, 2] - cov2d[:, 1] * cov2d[:, 1]
-    det_valid = det != 0.0
-    det_inv = 1.0 / torch.where(det_valid, det, torch.ones_like(det))
-    conics = torch.stack(
-        [cov2d[:, 2] * det_inv, -cov2d[:, 1] * det_inv, cov2d[:, 0] * det_inv],
-        dim=-1,
-    )
-
-    mid = 0.5 * (cov2d[:, 0] + cov2d[:, 2])
-    disc = torch.sqrt(torch.clamp_min(mid * mid - det, 0.1))
-    lambda1 = mid + disc
-    radius_f = torch.ceil(3.0 * torch.sqrt(torch.clamp_min(lambda1, 1e-12)))
-
-    mx = ndc2pix(p_proj[:, 0], camera.width)
-    my = ndc2pix(p_proj[:, 1], camera.height)
-    means2d = torch.stack([mx, my], dim=-1)
-
-    grid_x = (camera.width + tile_size - 1) // tile_size
-    grid_y = (camera.height + tile_size - 1) // tile_size
-
-    # Rects and radii are structural (integers), so no gradient flows here.
-    with torch.no_grad():
-        if opacities is None:
-            rad_x = rad_y = radius_f
-            opa_visible = torch.ones_like(in_front)
+    with tracing.span("preprocess"):
+        if cov3d_precomp is None:
+            if scales is None or rotations is None:
+                raise ValueError("preprocess needs scales and rotations, or cov3d_precomp")
+            cov3d = build_covariance_3d(scales, rotations, scale_modifier)
         else:
-            opa = opacities.detach().reshape(-1)
-            opa_visible = opa * 255.0 > 1.0
-            e = torch.sqrt(
-                torch.clamp_min(2.0 * torch.log(torch.clamp_min(opa, 1e-12) * 255.0), 0.0)
-            )
-            rad_x = torch.minimum(
-                e * torch.sqrt(torch.clamp_min(cov2d[:, 0], 0.0)) + 1.0, radius_f
-            )
-            rad_y = torch.minimum(
-                e * torch.sqrt(torch.clamp_min(cov2d[:, 2], 0.0)) + 1.0, radius_f
-            )
+            cov3d = cov3d_precomp
 
-        rx0 = _tile_index((mx - rad_x) / tile_size, grid_x)
-        ry0 = _tile_index((my - rad_y) / tile_size, grid_y)
-        rx1 = _tile_index((mx + rad_x + tile_size - 1) / tile_size, grid_x)
-        ry1 = _tile_index((my + rad_y + tile_size - 1) / tile_size, grid_y)
-        num_tiles = (rx1 - rx0) * (ry1 - ry0)
+        world_view, full_proj, _ = camera.tensors(means3d.device)
+        p_proj, p_view = project_points(means3d, world_view, full_proj)
+        depths = p_view[:, 2]
+        in_front = depths > 0.2
 
-        # Radii/visibility use the 3σ circle rect regardless of opacity.
-        r3x0 = _tile_index((mx - radius_f) / tile_size, grid_x)
-        r3y0 = _tile_index((my - radius_f) / tile_size, grid_y)
-        r3x1 = _tile_index((mx + radius_f + tile_size - 1) / tile_size, grid_x)
-        r3y1 = _tile_index((my + radius_f + tile_size - 1) / tile_size, grid_y)
-        visible = in_front & det_valid & ((r3x1 - r3x0) * (r3y1 - r3y0) > 0)
-        if active_mask is not None:
-            visible = visible & active_mask
-        valid = visible & (num_tiles > 0) & opa_visible
-        radii = torch.where(visible, radius_f, torch.zeros_like(radius_f)).to(torch.int32)
+        cov2d = compute_cov2d(p_view, cov3d, camera, world_view)
+        det = cov2d[:, 0] * cov2d[:, 2] - cov2d[:, 1] * cov2d[:, 1]
+        det_valid = det != 0.0
+        det_inv = 1.0 / torch.where(det_valid, det, torch.ones_like(det))
+        conics = torch.stack(
+            [cov2d[:, 2] * det_inv, -cov2d[:, 1] * det_inv, cov2d[:, 0] * det_inv],
+            dim=-1,
+        )
 
-        row_pack = None
-        if opacities is not None and row_footprints:
-            tau = torch.log(torch.clamp_min(opa, 1e-12) * 255.0)
-            row_pack, num_tiles = _row_intervals(
-                mx, my, conics, tau, rx0, rx1, ry0, ry1, grid_y, tile_size
-            )
-            valid = valid & (num_tiles > 0)
-            row_pack = torch.where(valid[:, None], row_pack, torch.zeros_like(row_pack))
-        tiles_touched = torch.where(valid, num_tiles, torch.zeros_like(num_tiles))
+        mid = 0.5 * (cov2d[:, 0] + cov2d[:, 2])
+        disc = torch.sqrt(torch.clamp_min(mid * mid - det, 0.1))
+        lambda1 = mid + disc
+        radius_f = torch.ceil(3.0 * torch.sqrt(torch.clamp_min(lambda1, 1e-12)))
 
-    return Preprocessed(
-        means2d=means2d,
-        depths=depths,
-        conics=conics,
-        radii=radii,
-        rect_min=torch.stack([rx0, ry0], dim=-1),
-        rect_max=torch.stack([rx1, ry1], dim=-1),
-        tiles_touched=tiles_touched.to(torch.int32),
-        valid=valid,
-        row_pack=row_pack,
-    )
+        mx = ndc2pix(p_proj[:, 0], camera.width)
+        my = ndc2pix(p_proj[:, 1], camera.height)
+        means2d = torch.stack([mx, my], dim=-1)
+
+        grid_x = (camera.width + tile_size - 1) // tile_size
+        grid_y = (camera.height + tile_size - 1) // tile_size
+
+        # Rects and radii are structural (integers), so no gradient flows here.
+        with torch.no_grad():
+            if opacities is None:
+                rad_x = rad_y = radius_f
+                opa_visible = torch.ones_like(in_front)
+            else:
+                opa = opacities.detach().reshape(-1)
+                opa_visible = opa * 255.0 > 1.0
+                e = torch.sqrt(
+                    torch.clamp_min(2.0 * torch.log(torch.clamp_min(opa, 1e-12) * 255.0), 0.0)
+                )
+                rad_x = torch.minimum(
+                    e * torch.sqrt(torch.clamp_min(cov2d[:, 0], 0.0)) + 1.0, radius_f
+                )
+                rad_y = torch.minimum(
+                    e * torch.sqrt(torch.clamp_min(cov2d[:, 2], 0.0)) + 1.0, radius_f
+                )
+
+            rx0 = _tile_index((mx - rad_x) / tile_size, grid_x)
+            ry0 = _tile_index((my - rad_y) / tile_size, grid_y)
+            rx1 = _tile_index((mx + rad_x + tile_size - 1) / tile_size, grid_x)
+            ry1 = _tile_index((my + rad_y + tile_size - 1) / tile_size, grid_y)
+            num_tiles = (rx1 - rx0) * (ry1 - ry0)
+
+            # Radii/visibility use the 3σ circle rect regardless of opacity.
+            r3x0 = _tile_index((mx - radius_f) / tile_size, grid_x)
+            r3y0 = _tile_index((my - radius_f) / tile_size, grid_y)
+            r3x1 = _tile_index((mx + radius_f + tile_size - 1) / tile_size, grid_x)
+            r3y1 = _tile_index((my + radius_f + tile_size - 1) / tile_size, grid_y)
+            visible = in_front & det_valid & ((r3x1 - r3x0) * (r3y1 - r3y0) > 0)
+            if active_mask is not None:
+                visible = visible & active_mask
+            valid = visible & (num_tiles > 0) & opa_visible
+            radii = torch.where(visible, radius_f, torch.zeros_like(radius_f)).to(torch.int32)
+
+            row_pack = None
+            if opacities is not None and row_footprints:
+                tau = torch.log(torch.clamp_min(opa, 1e-12) * 255.0)
+                row_pack, num_tiles = _row_intervals(
+                    mx, my, conics, tau, rx0, rx1, ry0, ry1, grid_y, tile_size
+                )
+                valid = valid & (num_tiles > 0)
+                row_pack = torch.where(valid[:, None], row_pack, torch.zeros_like(row_pack))
+            tiles_touched = torch.where(valid, num_tiles, torch.zeros_like(num_tiles))
+
+        return Preprocessed(
+            means2d=means2d,
+            depths=depths,
+            conics=conics,
+            radii=radii,
+            rect_min=torch.stack([rx0, ry0], dim=-1),
+            rect_max=torch.stack([rx1, ry1], dim=-1),
+            tiles_touched=tiles_touched.to(torch.int32),
+            valid=valid,
+            row_pack=row_pack,
+        )

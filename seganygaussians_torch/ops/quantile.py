@@ -13,6 +13,8 @@ from typing import NamedTuple
 
 import torch
 
+from seganygaussians_torch.utils import tracing
+
 
 class QuantileTransform(NamedTuple):
     quantiles: torch.Tensor  # (Q,) ascending reference values
@@ -23,9 +25,10 @@ def _unit_linspace(q: int, device) -> torch.Tensor:
     """``jnp.linspace(0, 1, q)`` to the bit: i times the fp32 reciprocal of
     q − 1 (``torch.linspace`` steps from both ends and rounds otherwise), so
     that knots which fall on whole positions do so in both packages."""
-    step = torch.tensor(1.0 / (q - 1), dtype=torch.float32, device=device)
-    out = torch.arange(q, dtype=torch.float32, device=device) * step
-    out[-1] = 1.0
+    with tracing.sync("quantile", 2):  # two copies from the host
+        step = torch.tensor(1.0 / (q - 1), dtype=torch.float32, device=device)
+        out = torch.arange(q, dtype=torch.float32, device=device) * step
+        out[-1] = 1.0
     return out
 
 

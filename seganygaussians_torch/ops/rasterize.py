@@ -32,6 +32,7 @@ from seganygaussians_torch.ops.binning import expand_slots, plan_instances
 from seganygaussians_torch.ops.camera import CameraParams
 from seganygaussians_torch.ops.projection import preprocess
 from seganygaussians_torch.ops.sh import eval_sh_color
+from seganygaussians_torch.utils import tracing
 
 BACKENDS = ("auto", "cuda", "cuda_sortfree", "torch")
 
@@ -91,89 +92,96 @@ def rasterize(
     alpha-composited with zero background (depth = Σ dᵢ·αᵢ·Tᵢ, mask =
     Σ mᵢ·αᵢ·Tᵢ).  The result lies on ``means3d``'s device.
     """
-    if (colors is None) == (shs is None):
-        raise ValueError("provide exactly one of colors/shs")
-    device = means3d.device
-    backend = _select_backend(config.backend, device)
+    with tracing.span("blend_glue"):
+        if (colors is None) == (shs is None):
+            raise ValueError("provide exactly one of colors/shs")
+        device = means3d.device
+        backend = _select_backend(config.backend, device)
 
-    prep = preprocess(
-        means3d,
-        camera,
-        scales=scales,
-        rotations=rotations,
-        cov3d_precomp=cov3d_precomp,
-        scale_modifier=config.scale_modifier,
-        tile_size=config.tile_size,
-        active_mask=active_mask,
-        opacities=opacities,
-        row_footprints=config.row_footprints,
-    )
-
-    means2d = prep.means2d
-    if ndc_offset is not None:
-        # ndc2Pix is affine: pix(ndc + δ) = pix(ndc) + δ·S/2.
-        scale_vec = torch.tensor(
-            [camera.width * 0.5, camera.height * 0.5], dtype=means2d.dtype, device=device
+        prep = preprocess(
+            means3d,
+            camera,
+            scales=scales,
+            rotations=rotations,
+            cov3d_precomp=cov3d_precomp,
+            scale_modifier=config.scale_modifier,
+            tile_size=config.tile_size,
+            active_mask=active_mask,
+            opacities=opacities,
+            row_footprints=config.row_footprints,
         )
-        means2d = means2d + ndc_offset * scale_vec
 
-    if colors is None:
-        _, _, cam_center = camera.tensors(device)
-        colors = eval_sh_color(sh_degree, shs, means3d, cam_center)
+        means2d = prep.means2d
+        if ndc_offset is not None:
+            # ndc2Pix is affine: pix(ndc + δ) = pix(ndc) + δ·S/2.
+            with tracing.sync("ndc_scale"):
+                scale_vec = torch.tensor(
+                    [camera.width * 0.5, camera.height * 0.5], dtype=means2d.dtype, device=device
+                )
+            means2d = means2d + ndc_offset * scale_vec
 
-    channels = [colors]
-    if with_depth:
-        channels.append(prep.depths[:, None])
-    if extra is not None:
-        channels.append(extra)
-    all_colors = torch.cat(channels, dim=-1) if len(channels) > 1 else colors
+        if colors is None:
+            _, _, cam_center = camera.tensors(device)
+            colors = eval_sh_color(sh_degree, shs, means3d, cam_center)
 
-    c_rgb = colors.shape[-1]
-    if bg is None:
-        bg = torch.zeros((c_rgb,), dtype=torch.float32, device=device)
-    bg_full = torch.cat(
-        [bg, torch.zeros((all_colors.shape[-1] - c_rgb,), dtype=bg.dtype, device=device)]
-    )
+        channels = [colors]
+        if with_depth:
+            channels.append(prep.depths[:, None])
+        if extra is not None:
+            channels.append(extra)
+        all_colors = torch.cat(channels, dim=-1) if len(channels) > 1 else colors
 
-    ts = config.tile_size
-    grid_x = (camera.width + ts - 1) // ts
-    grid_y = (camera.height + ts - 1) // ts
+        c_rgb = colors.shape[-1]
+        if bg is None:
+            bg = torch.zeros((c_rgb,), dtype=torch.float32, device=device)
+        bg_full = torch.cat(
+            [bg, torch.zeros((all_colors.shape[-1] - c_rgb,), dtype=bg.dtype, device=device)]
+        )
 
-    if backend == "cuda_sortfree":
-        plan = plan_instances(prep, grid_x, grid_y, config.capacity)
-    else:
-        plan = expand_slots(prep, grid_x, grid_y, config.capacity)
-    perm = plan.depth_perm
-    means2d_d = means2d[perm]
-    conics_d = prep.conics[perm]
-    opacities_d = opacities[perm]
-    colors_d = all_colors[perm]
-    fields = (
-        means2d_d[:, 0], means2d_d[:, 1],
-        conics_d[:, 0], conics_d[:, 1], conics_d[:, 2],
-        opacities_d,
-    ) + tuple(colors_d.unbind(-1))
-    # blend_fused and blend_sortfree run the kernels on CUDA tensors, the
-    # plain version on CPU tensors.
-    if backend == "cuda_sortfree":
-        out = blend_cuda.blend_sortfree(plan.sorted_gauss, plan.tile_starts, fields, bg_full,
-                                        grid_x, grid_y, ts)
-    else:
-        blend_fn = blend_cuda.blend_fused_plain if backend == "torch" else blend_cuda.blend_fused
-        out = blend_fn(plan.slot_rank, plan.slot_tile, fields, bg_full, grid_x, grid_y, ts)
+        ts = config.tile_size
+        grid_x = (camera.width + ts - 1) // ts
+        grid_y = (camera.height + ts - 1) // ts
 
-    def to_image(x):
-        return blend_torch.tiles_to_image(x, grid_x, grid_y, ts, camera.width, camera.height)
+        if backend == "cuda_sortfree":
+            plan = plan_instances(prep, grid_x, grid_y, config.capacity)
+        else:
+            plan = expand_slots(prep, grid_x, grid_y, config.capacity)
+        # The backward's edge (b): the gradient reaches the Gaussians.
+        means2d, conics, opacities, all_colors = tracing.mark(
+            "gaussians", "raster", means2d, prep.conics, opacities, all_colors)
+        perm = plan.depth_perm
+        means2d_d = means2d[perm]
+        conics_d = conics[perm]
+        opacities_d = opacities[perm]
+        colors_d = all_colors[perm]
+        fields = (
+            means2d_d[:, 0], means2d_d[:, 1],
+            conics_d[:, 0], conics_d[:, 1], conics_d[:, 2],
+            opacities_d,
+        ) + tuple(colors_d.unbind(-1))
+        # blend_fused and blend_sortfree run the kernels on CUDA tensors, the
+        # plain version on CPU tensors.
+        if backend == "cuda_sortfree":
+            out = blend_cuda.blend_sortfree(plan.sorted_gauss, plan.tile_starts, fields, bg_full,
+                                            grid_x, grid_y, ts)
+        else:
+            blend_fn = (blend_cuda.blend_fused_plain if backend == "torch"
+                        else blend_cuda.blend_fused)
+            out = blend_fn(plan.slot_rank, plan.slot_tile, fields, bg_full, grid_x, grid_y, ts)
 
-    img = to_image(out.tiles)
-    final_t = to_image(out.final_t[:, :, None])[..., 0]
-    n_contrib = to_image(out.n_contrib[:, :, None])[..., 0]
+        def to_image(x):
+            return blend_torch.tiles_to_image(x, grid_x, grid_y, ts, camera.width, camera.height)
 
-    return RasterOutput(
-        color=img[..., :c_rgb],
-        extra=img[..., c_rgb:] if all_colors.shape[-1] > c_rgb else None,
-        final_t=final_t,
-        n_contrib=n_contrib,
-        radii=prep.radii,
-        overflow=plan.overflow,
-    )
+        # The backward's edge (a): the gradient reaches the image.
+        (img,) = tracing.mark("image", "loss", to_image(out.tiles))
+        final_t = to_image(out.final_t[:, :, None])[..., 0]
+        n_contrib = to_image(out.n_contrib[:, :, None])[..., 0]
+
+        return RasterOutput(
+            color=img[..., :c_rgb],
+            extra=img[..., c_rgb:] if all_colors.shape[-1] > c_rgb else None,
+            final_t=final_t,
+            n_contrib=n_contrib,
+            radii=prep.radii,
+            overflow=plan.overflow,
+        )

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from seganygaussians_torch.utils import tracing
+
 SH_C0 = 0.28209479177387814
 SH_C1 = 0.4886025119029199
 SH_C2 = (
@@ -101,9 +103,10 @@ def eval_sh_color(
 ) -> torch.Tensor:
     """Per-Gaussian view-dependent color: SH along the normalised view
     direction, shifted by +0.5 and clamped at zero."""
-    dirs = means3d - cam_center[None, :]
-    dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True).clamp_min(1e-12)
-    return torch.clamp_min(eval_sh(deg, sh, dirs) + 0.5, 0.0)
+    with tracing.span("preprocess"):
+        dirs = means3d - cam_center[None, :]
+        dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True).clamp_min(1e-12)
+        return torch.clamp_min(eval_sh(deg, sh, dirs) + 0.5, 0.0)
 
 
 def rgb2sh(rgb: torch.Tensor) -> torch.Tensor:

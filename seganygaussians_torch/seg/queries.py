@@ -13,12 +13,14 @@ from typing import Optional
 import torch
 
 from seganygaussians_torch.seg.scale_gate import ScaleGateParams, apply_scale_gate
+from seganygaussians_torch.utils import tracing
 from seganygaussians_torch.utils.precision import ieee_fp32_matmul
 
 
 def normalize(x: torch.Tensor, eps: float = 1e-9) -> torch.Tensor:
     """x / max(‖x‖, eps) along the last axis."""
-    return x / torch.linalg.norm(x, dim=-1, keepdim=True).clamp_min(eps)
+    with tracing.span("gate"):
+        return x / torch.linalg.norm(x, dim=-1, keepdim=True).clamp_min(eps)
 
 
 def gate_features(
@@ -27,9 +29,11 @@ def gate_features(
     scale,  # () quantile-normalised scale in [0, 1]: a float or a tensor
 ) -> torch.Tensor:
     """Scale-condition features: f ⊙ gate(scale), L2-normalised."""
-    s = torch.as_tensor(scale, dtype=torch.float32, device=features.device)
-    gates = apply_scale_gate(gate_params, s.reshape(1, 1))[0]  # (D,)
-    return normalize(features * gates[None, :])
+    with tracing.span("gate"):
+        with tracing.sync("gate_scale"):
+            s = torch.as_tensor(scale, dtype=torch.float32, device=features.device)
+        gates = apply_scale_gate(gate_params, s.reshape(1, 1))[0]  # (D,)
+        return normalize(features * gates[None, :])
 
 
 def click_similarity(
@@ -64,9 +68,10 @@ def segment3d(
     (0.75 for a point prompt, 0.85 on the language path).  With ``alive``
     over a capacity-padded scene state (live rows first), the mask is padded
     to its length and restricted to it."""
-    gated = gate_features(gaussian_features, gate_params, scale)
-    score = similarity_to_prompts(gated, normalize(prompt_features))
-    return pad_to_alive(score > threshold, alive)
+    with tracing.span("gate"):
+        gated = gate_features(gaussian_features, gate_params, scale)
+        score = similarity_to_prompts(gated, normalize(prompt_features))
+        return pad_to_alive(score > threshold, alive)
 
 
 def pad_to_alive(mask: torch.Tensor, alive: Optional[torch.Tensor]) -> torch.Tensor:

@@ -15,6 +15,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from seganygaussians_torch.utils import tracing
+
 
 class ScaleGateParams(NamedTuple):
     w: torch.Tensor  # (1, D)
@@ -35,7 +37,8 @@ def init_scale_gate(
 def apply_scale_gate(params: ScaleGateParams, scales: torch.Tensor) -> torch.Tensor:
     """scales (..., 1) → gates (..., D) in (0, 1).  The inner dimension is 1,
     so the product is written elementwise and stays fp32 on the card."""
-    return torch.sigmoid(scales * params.w[0] + params.b)
+    with tracing.span("gate"):
+        return torch.sigmoid(scales * params.w[0] + params.b)
 
 
 def fixed_scale_gate(scale_aware_dim: int, feature_dim: int = 32, device="cuda") -> torch.Tensor:

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -42,6 +42,7 @@ from seganygaussians_torch.ops.quantile import (
 from seganygaussians_torch.ops.rasterize import RasterConfig, rasterize
 from seganygaussians_torch.parallel.mesh import collective, run_alone
 from seganygaussians_torch.seg.scale_gate import ScaleGateParams, apply_scale_gate
+from seganygaussians_torch.utils import tracing
 from seganygaussians_torch.utils.precision import ieee_fp32_matmul
 
 NUM_SAMPLED_SCALES = 8
@@ -75,11 +76,12 @@ def build_mask_bundle(
         raise ValueError(f"{k} masks > max_masks {max_masks}")
     m = np.pad(m, ((0, max_masks - k), (0, 0), (0, 0)))
     s = np.pad(s, (0, max_masks - k), constant_values=-np.inf)
-    return MaskBundle(
-        masks=torch.from_numpy(m).to(device),
-        scales=torch.from_numpy(s).to(device),
-        n_valid=torch.tensor(k, dtype=torch.long, device=device),
-    )
+    with tracing.span("loss"):
+        return MaskBundle(
+            masks=torch.from_numpy(m).to(device),
+            scales=torch.from_numpy(s).to(device),
+            n_valid=torch.tensor(k, dtype=torch.long, device=device),
+        )
 
 
 class ContrastiveConsts(NamedTuple):
@@ -269,13 +271,16 @@ def _block_loss(
         # The smoothers L2-normalise before the K-mean; the render normalises
         # each point's feature again, as the reference does.
         feats = _safe_normalize(smoothed)
+        with tracing.span("smoothing"):  # models/feature_gaussians.py's activations
+            opacity, scales = fgm.get_opacity(geom), fgm.get_scaling(geom)
+            rotations = fgm.get_rotation(geom)
         out = rasterize(
             geom.xyz,
-            fgm.get_opacity(geom)[:, 0],
+            opacity[:, 0],
             camera,
             colors=feats,
-            scales=fgm.get_scaling(geom),
-            rotations=fgm.get_rotation(geom),
+            scales=scales,
+            rotations=rotations,
             bg=torch.zeros((feats.shape[-1],), dtype=torch.float32, device=feats.device),
             active_mask=geom.alive,
             config=config,
@@ -376,7 +381,7 @@ def contrastive_block_step(
     loss_for_grad, pair_loss, rfn_reg, aux = yield from _block_loss(
         pf, gate, feat_state, camera, consts, draws, q_scales, gt_corrs, ppw, hyper, config,
         block, ray_size)
-    with ieee_fp32_matmul():
+    with ieee_fp32_matmul(), tracing.backward("smoothing"):
         feat_grad, *gate_grads = torch.autograd.grad(loss_for_grad, (pf, *gate))
     del loss_for_grad
 
@@ -384,10 +389,13 @@ def contrastive_block_step(
         "sum", "ray", feat_grad, *gate_grads, pair_loss)
     loss = pair_loss + hyper.rfn * rfn_reg
     feat_grad, *gate_grads, loss = yield collective("mean", "data", feat_grad, *gate_grads, loss)
-    (overflow,) = yield collective("max", ("data", "ray"),
-                                   torch.tensor(int(aux["overflow"]), device=loss.device))
+    with tracing.sync("overflow_flag"):
+        flag = torch.tensor(int(aux["overflow"]), device=loss.device)
+    (overflow,) = yield collective("max", ("data", "ray"), flag)
     gate_grads = ScaleGateParams(*gate_grads)
-    aux.update(loss=loss, overflow=bool(overflow))
+    with tracing.sync("overflow"):
+        overflow = bool(overflow)
+    aux.update(loss=loss, overflow=overflow)
     if hyper.debug_grads:
         aux["feat_grads"] = feat_grad
         aux["gate_grads"] = gate_grads
@@ -422,12 +430,13 @@ def contrastive_step(
     aux).  ``draws`` are the step's random numbers; without them they are
     drawn from ``generator``.  The (S, R, R) correlation product and its
     gradient run in IEEE fp32 whatever the caller's TF32 setting."""
-    if draws is None:
-        if generator is None:
-            raise ValueError("contrastive_step needs draws or a generator")
-        draws = draw_step(generator, bundle, hyper, feat_state.smooth_map.shape[1])
-    return run_alone(contrastive_block_step(feat_state, gate_params, gate_opt, camera, bundle,
-                                            consts, draws, hyper, config))
+    with tracing.span("loss"):
+        if draws is None:
+            if generator is None:
+                raise ValueError("contrastive_step needs draws or a generator")
+            draws = draw_step(generator, bundle, hyper, feat_state.smooth_map.shape[1])
+        return run_alone(contrastive_block_step(feat_state, gate_params, gate_opt, camera, bundle,
+                                                consts, draws, hyper, config))
 
 
 @dataclasses.dataclass
@@ -440,6 +449,8 @@ class ContrastiveTrainer:
     hyper: ContrastiveHyper = ContrastiveHyper()
     config: RasterConfig = RasterConfig()
     seed: int = 0
+    # Fires after every iteration, outside its span: on_iteration(self, it, aux).
+    on_iteration: Optional[Callable] = None
 
     def __post_init__(self):
         self.device = self.feat_state.point_features.device
@@ -484,19 +495,22 @@ class ContrastiveTrainer:
         stack: list[int] = []
         t0 = time.time()
         for it in range(1, iterations + 1):
-            if not stack:
-                stack = list(order_rng.permutation(len(self.cameras)))
-            idx = stack.pop()
-            bundle, cam_params = self._prep(idx)
-            self.feat_state, self.gate_params, self.gate_opt, aux = contrastive_step(
-                self.feat_state, self.gate_params, self.gate_opt, cam_params, bundle,
-                self.consts, self.hyper, self.config, generator=self.generator,
-            )
-            if aux["overflow"]:
-                raise RuntimeError(
-                    f"instance capacity {self.config.capacity} exceeded at iteration {it}; "
-                    "raise --raster_capacity"
+            with tracing.span("feature_step", uid=it):
+                if not stack:
+                    stack = list(order_rng.permutation(len(self.cameras)))
+                idx = stack.pop()
+                bundle, cam_params = self._prep(idx)
+                self.feat_state, self.gate_params, self.gate_opt, aux = contrastive_step(
+                    self.feat_state, self.gate_params, self.gate_opt, cam_params, bundle,
+                    self.consts, self.hyper, self.config, generator=self.generator,
                 )
+                if aux["overflow"]:
+                    raise RuntimeError(
+                        f"instance capacity {self.config.capacity} exceeded at iteration {it}; "
+                        "raise --raster_capacity"
+                    )
+            if self.on_iteration:
+                self.on_iteration(self, it, aux)
             if log_every and it % log_every == 0:
                 m = {k: float(v) for k, v in aux.items() if k not in ("feat_grads", "gate_grads")}
                 m["iter"] = it

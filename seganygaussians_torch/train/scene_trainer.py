@@ -27,19 +27,22 @@ from seganygaussians_torch.ops import losses
 from seganygaussians_torch.ops.binning import suggest_capacity
 from seganygaussians_torch.ops.camera import CameraParams
 from seganygaussians_torch.ops.rasterize import RasterConfig, rasterize
-from seganygaussians_torch.utils import lpips_metric
+from seganygaussians_torch.utils import lpips_metric, tracing
 
 
 def _render(params: gm.GaussianParams, alive, camera, bg, active_sh_degree, config,
             ndc_offset=None):
+    with tracing.span("preprocess"):  # the activations
+        opacity, shs = gm.get_opacity(params), gm.get_shs(params)
+        scales, rotations = gm.get_scaling(params), gm.get_rotation(params)
     return rasterize(
         params.xyz,
-        gm.get_opacity(params)[:, 0],
+        opacity[:, 0],
         camera,
-        shs=gm.get_shs(params),
+        shs=shs,
         sh_degree=active_sh_degree,
-        scales=gm.get_scaling(params),
-        rotations=gm.get_rotation(params),
+        scales=scales,
+        rotations=rotations,
         bg=bg,
         ndc_offset=ndc_offset,
         active_mask=alive,
@@ -64,10 +67,12 @@ def view_loss_and_grads(
     params = gm.GaussianParams(*leaves)
     ndc0 = torch.zeros((params.xyz.shape[0], 2), device=params.xyz.device, requires_grad=True)
     out = _render(params, state.alive, camera, bg, active_sh_degree, config, ndc0)
-    l1 = losses.l1_loss(out.color, gt_image)
-    ssim_v = losses.ssim(out.color, gt_image)
+    with tracing.span("loss"):
+        l1 = losses.l1_loss(out.color, gt_image)
+        ssim_v = losses.ssim(out.color, gt_image)
     loss = (1.0 - hyper.lambda_dssim) * l1 + hyper.lambda_dssim * (1.0 - ssim_v)
-    *param_grads, ndc_grad = torch.autograd.grad(loss, leaves + [ndc0])
+    with tracing.backward("preprocess"):
+        *param_grads, ndc_grad = torch.autograd.grad(loss, leaves + [ndc0])
     return loss.detach(), l1.detach(), param_grads, ndc_grad, out.radii, out.overflow
 
 
@@ -104,9 +109,11 @@ def train_step(
         )
         state = state._replace(params=new_params, opt=new_opt)
         ndc_safe = torch.where(finite, ndc_grad, torch.zeros_like(ndc_grad))
-        state = gm.add_densification_stats(state, ndc_safe, radii)
+        with tracing.span("preprocess"):  # models/gaussians.py
+            state = gm.add_densification_stats(state, ndc_safe, radii)
+            n_alive = gm.num_alive(state)
         metrics = {"loss": loss, "l1": l1, "overflow": overflow,
-                   "n_alive": gm.num_alive(state), "nonfinite": ~finite}
+                   "n_alive": n_alive, "nonfinite": ~finite}
     return state, metrics
 
 
@@ -195,32 +202,35 @@ class SceneTrainer:
         self.active_sh_degree = min(self.sh_degree, start_iteration // 1000)
         t0 = time.time()
         for it in range(start_iteration + 1, iterations + 1):
-            if it % 1000 == 0 and self.active_sh_degree < self.sh_degree:
-                self.active_sh_degree += 1
-            cam, gt = self._next_camera()
-            self.state, metrics = train_step(
-                self.state, cam.params, gt, self.bg, it, self.spatial_lr_scale,
-                self.active_sh_degree, h, self.config,
-            )
-            if metrics["overflow"]:
-                self._grow_capacity()
-            if bool(metrics["nonfinite"]):
-                print(f"[ITER {it}] WARNING: non-finite loss/grads "
-                      f"(camera '{getattr(cam, 'image_name', '?')}') — update skipped")
-            # The opacity reset is not nested under the densify-from gate:
-            # white-background scenes reset at exactly it == densify_from, and
-            # periodic resets run for the whole it < densify_until window.
-            if it < h.densify_until_iter:
-                if it > h.densify_from_iter and it % h.densification_interval == 0:
-                    max_screen = 20.0 if it > h.opacity_reset_interval else 0.0
-                    self.state = densify_step(
-                        self.state, self.generator, self.extent, max_screen, h
-                    )
-                if it % h.opacity_reset_interval == 0 or (
-                    self.white_background and it == h.densify_from_iter
-                ):
-                    with torch.no_grad():
-                        self.state = gm.reset_opacity(self.state)
+            with tracing.span("scene_step", uid=it):
+                if it % 1000 == 0 and self.active_sh_degree < self.sh_degree:
+                    self.active_sh_degree += 1
+                cam, gt = self._next_camera()
+                self.state, metrics = train_step(
+                    self.state, cam.params, gt, self.bg, it, self.spatial_lr_scale,
+                    self.active_sh_degree, h, self.config,
+                )
+                if metrics["overflow"]:
+                    self._grow_capacity()
+                with tracing.sync("nonfinite"):
+                    nonfinite = bool(metrics["nonfinite"])
+                if nonfinite:
+                    print(f"[ITER {it}] WARNING: non-finite loss/grads "
+                          f"(camera '{getattr(cam, 'image_name', '?')}') — update skipped")
+                # The opacity reset is not nested under the densify-from gate:
+                # white-background scenes reset at exactly it == densify_from, and
+                # periodic resets run for the whole it < densify_until window.
+                if it < h.densify_until_iter:
+                    if it > h.densify_from_iter and it % h.densification_interval == 0:
+                        max_screen = 20.0 if it > h.opacity_reset_interval else 0.0
+                        self.state = densify_step(
+                            self.state, self.generator, self.extent, max_screen, h
+                        )
+                    if it % h.opacity_reset_interval == 0 or (
+                        self.white_background and it == h.densify_from_iter
+                    ):
+                        with torch.no_grad():
+                            self.state = gm.reset_opacity(self.state)
             if self.on_iteration:
                 self.on_iteration(self, it, metrics)
             if log_every and it % log_every == 0:

@@ -38,6 +38,7 @@ from seganygaussians_torch.ops.camera import CameraParams
 from seganygaussians_torch.ops.rasterize import RasterConfig, rasterize
 from seganygaussians_torch.seg import clustering, queries
 from seganygaussians_torch.seg.scale_gate import ScaleGateParams
+from seganygaussians_torch.utils import tracing
 from seganygaussians_torch.utils.precision import ieee_fp32_matmul
 
 
@@ -51,13 +52,18 @@ def render_view(
     """One RGB frame for any camera, clamped to [0, 1], as a host (H, W, 3)
     float32 array: the network viewer's render."""
     p = state.params
+    with tracing.span("preprocess"):  # the activations
+        opacity, shs = gm.get_opacity(p), gm.get_shs(p)
+        scales, rotations = gm.get_scaling(p), gm.get_rotation(p)
     out = rasterize(
-        p.xyz, gm.get_opacity(p)[:, 0], camera,
-        shs=gm.get_shs(p), sh_degree=sh_degree,
-        scales=gm.get_scaling(p), rotations=gm.get_rotation(p),
+        p.xyz, opacity[:, 0], camera,
+        shs=shs, sh_degree=sh_degree,
+        scales=scales, rotations=rotations,
         active_mask=state.alive, config=config or RasterConfig(),
     )
-    return out.color.clamp(0.0, 1.0).cpu().numpy()
+    frame = out.color.clamp(0.0, 1.0)
+    with tracing.sync("frame"):
+        return frame.cpu().numpy()
 
 
 @dataclasses.dataclass
@@ -120,7 +126,9 @@ class SagaSession:
         alive = scene_state.alive
         xyz = torch.where(alive[:, None], scene_state.params.xyz, 0.0)
         centroid = xyz.sum(dim=0) / alive.sum().clamp_min(1)
-        self.orbit = OrbitState(center=centroid.cpu().numpy())
+        with tracing.sync("centroid"):
+            center = centroid.cpu().numpy()
+        self.orbit = OrbitState(center=center)
         self.scale = 0.5  # the slider's value, in [0, 1] quantile space
         self.threshold = 0.75
         self.chosen_features: list[torch.Tensor] = []
@@ -139,23 +147,28 @@ class SagaSession:
     @torch.no_grad()
     def render_rgb(self, cam: Optional[CameraParams] = None) -> np.ndarray:
         """(H, W, 3) host frame, SH degree 0, clamped to [0, 1]."""
-        return render_view(self.scene_state, cam or self.orbit.params(), sh_degree=0,
-                           config=self.config)
+        with tracing.request("render_rgb"):
+            return render_view(self.scene_state, cam or self.orbit.params(), sh_degree=0,
+                               config=self.config)
 
     @torch.no_grad()
     def render_feature_map(self, cam: Optional[CameraParams] = None) -> torch.Tensor:
         """(H, W, D) gated feature map on the session's device, zero
         background."""
-        cam = cam or self.orbit.params()
-        geom = self.feature_state.geom
-        gated = self._gated_gaussian_features()
-        out = rasterize(
-            geom.xyz, fgm.get_opacity(geom)[:, 0], cam, colors=gated,
-            scales=fgm.get_scaling(geom), rotations=fgm.get_rotation(geom),
-            bg=torch.zeros(gated.shape[-1], device=self.device),
-            active_mask=geom.alive, config=self.config,
-        )
-        return out.color
+        with tracing.request("render_feature_map"):
+            cam = cam or self.orbit.params()
+            geom = self.feature_state.geom
+            gated = self._gated_gaussian_features()
+            with tracing.span("smoothing"):  # models/feature_gaussians.py's activations
+                opacity, scales = fgm.get_opacity(geom), fgm.get_scaling(geom)
+                rotations = fgm.get_rotation(geom)
+            out = rasterize(
+                geom.xyz, opacity[:, 0], cam, colors=gated,
+                scales=scales, rotations=rotations,
+                bg=torch.zeros(gated.shape[-1], device=self.device),
+                active_mask=geom.alive, config=self.config,
+            )
+            return out.color
 
     @torch.no_grad()
     def render_pca(self, cam: Optional[CameraParams] = None,
@@ -163,49 +176,60 @@ class SagaSession:
         """(H, W, 3) PCA preview of the feature map.  The projection comes
         from the first frame rendered (over its pixels, or a drawn subsample
         of them, or ``indices``) and is kept for the session."""
-        fmap = self.render_feature_map(cam)
-        if self._pca_proj is None:
-            self._pca_proj = queries.feature_pca(
-                fmap.reshape(-1, fmap.shape[-1]), generator=self.generator, indices=indices)
-        return queries.apply_pca(fmap, self._pca_proj).cpu().numpy()
+        with tracing.request("render_pca"):
+            fmap = self.render_feature_map(cam)
+            if self._pca_proj is None:
+                self._pca_proj = queries.feature_pca(
+                    fmap.reshape(-1, fmap.shape[-1]), generator=self.generator, indices=indices)
+            preview = queries.apply_pca(fmap, self._pca_proj)
+            with tracing.sync("frame"):
+                return preview.cpu().numpy()
 
     @torch.no_grad()
     def render_similarity(self, cam: Optional[CameraParams] = None) -> np.ndarray:
         """(H, W) score map: each pixel's largest cosine to the prompts;
         zeros before any click (then nothing is rendered)."""
-        cam = cam or self.orbit.params()
-        if not self.chosen_features:
-            return np.zeros((cam.height, cam.width), np.float32)
-        fmap = queries.normalize(self.render_feature_map(cam))
-        prompts = torch.stack(self.chosen_features)
-        with ieee_fp32_matmul():
-            score = torch.einsum("hwc,pc->hwp", fmap, prompts).amax(dim=-1)
-        return score.cpu().numpy()
+        with tracing.request("render_similarity"):
+            cam = cam or self.orbit.params()
+            if not self.chosen_features:
+                return np.zeros((cam.height, cam.width), np.float32)
+            fmap = queries.normalize(self.render_feature_map(cam))
+            prompts = torch.stack(self.chosen_features)
+            with ieee_fp32_matmul():
+                score = torch.einsum("hwc,pc->hwp", fmap, prompts).amax(dim=-1)
+            with tracing.sync("frame"):
+                return score.cpu().numpy()
 
     @torch.no_grad()
     def render_cluster(self, cam: Optional[CameraParams] = None,
                        palette: Optional[np.ndarray] = None) -> np.ndarray:
         """(H, W, 3) cluster-id colors: each pixel's nearest normalised
         cluster center (clustering first if there are none)."""
-        if self.cluster_centers is None:
-            self.cluster_in_3d()
-        fmap = queries.normalize(self.render_feature_map(cam))
-        with ieee_fp32_matmul():
-            labels = torch.argmax(torch.einsum("hwc,kc->hwk", fmap, self.cluster_centers), dim=-1)
-        if palette is None:
-            palette = cluster_palette(self.cluster_centers.shape[0])
-        return np.asarray(palette)[labels.cpu().numpy()]
+        with tracing.request("render_cluster"):
+            if self.cluster_centers is None:
+                self.cluster_in_3d()
+            fmap = queries.normalize(self.render_feature_map(cam))
+            with ieee_fp32_matmul():
+                labels = torch.argmax(torch.einsum("hwc,kc->hwk", fmap, self.cluster_centers),
+                                      dim=-1)
+            if palette is None:
+                palette = cluster_palette(self.cluster_centers.shape[0])
+            with tracing.sync("frame"):
+                labels = labels.cpu().numpy()
+            return np.asarray(palette)[labels]
 
     # ---------------- interaction ----------------
 
     @torch.no_grad()
     def click(self, x: int, y: int, cam: Optional[CameraParams] = None) -> None:
         """Record the clicked pixel's normalised gated feature as a prompt."""
-        fmap = self.render_feature_map(cam)
-        self.chosen_features.append(queries.normalize(fmap[y, x]))
+        with tracing.request("click"):
+            fmap = self.render_feature_map(cam)
+            self.chosen_features.append(queries.normalize(fmap[y, x]))
 
     def clear_clicks(self) -> None:
-        self.chosen_features = []
+        with tracing.request("clear_clicks"):
+            self.chosen_features = []
 
     @torch.no_grad()
     def cluster_in_3d(self, k: int = 32, indices: Optional[torch.Tensor] = None,
@@ -213,42 +237,49 @@ class SagaSession:
         """Spherical k-means on a 2 % subsample of the live Gaussians' gated
         features (``indices`` into the live rows and ``init_centers`` replace
         the draws)."""
-        gated = self._gated_gaussian_features()
-        alive_idx = torch.nonzero(self.feature_state.geom.alive).flatten()
-        self.cluster_centers = clustering.cluster_features(
-            gated[alive_idx], k=min(k, alive_idx.numel()), sample_rate=0.02,
-            generator=self.generator, indices=indices, init_centers=init_centers)
+        with tracing.request("cluster_in_3d"):
+            gated = self._gated_gaussian_features()
+            alive_idx = torch.nonzero(self.feature_state.geom.alive).flatten()
+            self.cluster_centers = clustering.cluster_features(
+                gated[alive_idx], k=min(k, alive_idx.numel()), sample_rate=0.02,
+                generator=self.generator, indices=indices, init_centers=init_centers)
 
     @torch.no_grad()
     def segment3d(self) -> torch.Tensor:
         """Apply the prompts: returns the (capacity,) bool 3D mask and keeps
         only its Gaussians alive, with the previous state on the undo stack."""
-        if not self.chosen_features:
-            raise ValueError("segment3d needs at least one click")
-        feats = fgm.smoothed_point_features(self.feature_state)
-        mask = queries.segment3d(feats, self.gate, self.scale, torch.stack(self.chosen_features),
-                                 threshold=self.threshold, alive=self.scene_state.alive)
-        geom = self.feature_state.geom
-        self._undo.append((self.scene_state.alive, geom.alive))
-        self.scene_state = gm.segment(self.scene_state, mask)
-        # The feature field's rows are the scene state's first rows; a loaded
-        # scene's capacity may exceed them (queries.pad_to_alive).
-        self.feature_state = self.feature_state._replace(
-            geom=geom._replace(alive=geom.alive & mask[: geom.alive.shape[0]]))
-        return mask
+        with tracing.request("segment3d"):
+            if not self.chosen_features:
+                raise ValueError("segment3d needs at least one click")
+            feats = fgm.smoothed_point_features(self.feature_state)
+            mask = queries.segment3d(feats, self.gate, self.scale,
+                                     torch.stack(self.chosen_features),
+                                     threshold=self.threshold, alive=self.scene_state.alive)
+            geom = self.feature_state.geom
+            self._undo.append((self.scene_state.alive, geom.alive))
+            self.scene_state = gm.segment(self.scene_state, mask)
+            # The feature field's rows are the scene state's first rows; a loaded
+            # scene's capacity may exceed them (queries.pad_to_alive).
+            self.feature_state = self.feature_state._replace(
+                geom=geom._replace(alive=geom.alive & mask[: geom.alive.shape[0]]))
+            return mask
 
     def roll_back(self) -> None:
         """Undo the last segment3d (nothing to undo: no change)."""
-        if not self._undo:
-            return
-        scene_alive, feat_alive = self._undo.pop()
-        self.scene_state = self.scene_state._replace(alive=scene_alive)
-        self.feature_state = self.feature_state._replace(
-            geom=self.feature_state.geom._replace(alive=feat_alive))
+        with tracing.request("roll_back"):
+            if not self._undo:
+                return
+            scene_alive, feat_alive = self._undo.pop()
+            self.scene_state = self.scene_state._replace(alive=scene_alive)
+            self.feature_state = self.feature_state._replace(
+                geom=self.feature_state.geom._replace(alive=feat_alive))
 
     def save_mask(self, name: str = "final_mask", out_dir: str = "./segmentation_res") -> str:
         """Write the live set as a bool tensor over the whole capacity."""
-        os.makedirs(out_dir, exist_ok=True)
-        path = os.path.join(out_dir, f"{name}.pt")
-        torch.save(self.scene_state.alive.cpu(), path)
-        return path
+        with tracing.request("save_mask"):
+            os.makedirs(out_dir, exist_ok=True)
+            path = os.path.join(out_dir, f"{name}.pt")
+            with tracing.sync("mask"):
+                alive = self.scene_state.alive.cpu()
+            torch.save(alive, path)
+            return path
