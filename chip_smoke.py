@@ -4,11 +4,11 @@ one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Builds the forward-blend, backward-blend and scan-variants kernels from
-``seganygaussians_torch/csrc`` (one ``nvcc`` each, started together) and runs
-fourteen phases, each of which raises on failure (phases 10, 12, 13 and 14
-run after phase 8, on its feature field and phase 2's scene, and before
-phase 9):
+Builds the forward-blend, backward-blend, scan-variants and preprocess
+kernels from ``seganygaussians_torch/csrc`` (one ``nvcc`` a source, started
+together) and runs fifteen phases, each of which raises on failure (phases
+10, 12, 13 and 14 run after phase 8, on its feature field and phase 2's
+scene, and before phase 9; phase 15 runs last):
 
 1. Kernel against its plain version (``ops/blend.py``) on the same CUDA
    inputs: ~2000 Gaussians at 256×192, C ∈ {3, 4, 5, 32}, the padded counts
@@ -144,12 +144,29 @@ phase 9):
    against the whole frame; then a real NCCL process group of one rank and
    ten ``make_dp_train_step``s on it (median device ms).  Every step's
    kernel launches are counted.
+15. The preprocess kernel pair (``csrc/preprocess.cu``) at the main path's
+   shapes: 5,800,000 seeded Gaussians (the benchmark's garden scene's count)
+   with 362,500 dead slots, SH degree 3, one orbit view at 1297×840, the
+   ball wider than the orbit so that some lie behind the camera and some
+   off the image; the inputs as ``scene_trainer._render`` gives them.  The
+   forward against ``projection._preprocess_plain`` and ``eval_sh_color``
+   (floats within 1e-6 of each column's largest value; integer outputs equal
+   but for at most 1e-4 of the Gaussians one tile apart), the backward,
+   with seeded upstream gradients on the valid rows, against autograd
+   through that plain path (1e-5; the same structural zeros: every gradient
+   of an unreached row, the SH coefficients' everywhere; a sum cancelled to
+   0 on one side only, rounding in another order, counted and held to a
+   residue within 1e-6 of its column's largest value); device ms of each
+   kernel, its byte bound and the plain path's time; the launches
+   (forward, backward), each window counted from 0: 1 and 1 over a
+   ``train_step``, 1 and 0 over a feature render's gradient and over a
+   no-grad ``render.render``.
 
 The second-to-last line of output is a JSON object describing the kernels
 (times, bound, and each instance's launches over its main-path window:
 phases 2 and 12 for the forward, 5 for the backward, 13 for C = 64, with
 the launches on phases 13-14's paths beside them; the script fails if one
-is 0); the last is
+is 0; the preprocess kernels' entries carry phase 15's windows); the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without CUDA, or without the package beside this file, it exits non-zero
 before printing a result.
@@ -212,6 +229,15 @@ N_SESSION_FRAMES, N_SESSION_CLICKS, N_WEB_REQUESTS = 10, 5, 5
 SEGMENT_MARGIN = 1e-4  # host and card scores differ by float32 rounding only
 QUERY_GOAL_MS = 33.0  # a point query within one frame of interactive use
 IOU_GATE = 0.5  # phase 11: the segmented render against the clicked SAM mask
+# Phase 15: the benchmark's garden scene's count (perfbench/configs/m360_garden.json),
+# in a ball about the orbit's centre wider than the orbit (2.6), so that some
+# Gaussians lie behind the camera and some in front of it but off the image.
+N_MAIN, PREP_RADIUS = 5_800_000, 3.0
+PREP_GEOMETRY = ("means3d", "scales", "rotations", "shs")
+# Floats within 1e-6 of their column's largest value, integer outputs equal
+# but for at most 1e-4 of the Gaussians one tile apart (a float within an ulp
+# of a tile edge); gradients within 1e-5, with the same structural zeros.
+TOL_PREP_FWD, TOL_PREP_BWD, MAX_PREP_OFF = 1e-6, 1e-5, 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -497,11 +523,9 @@ def frame_stages(params, camera, capacity, device) -> dict[str, float]:
     from seganygaussians_torch.ops.binning import expand_slots, sort_instances
     from seganygaussians_torch.ops.blend_cuda import FORWARD
     from seganygaussians_torch.ops.projection import preprocess
-    from seganygaussians_torch.ops.sh import eval_sh_color
 
     xyz, opa = params.xyz, gm.get_opacity(params)[:, 0]
     scales, rots, shs = gm.get_scaling(params), gm.get_rotation(params), gm.get_shs(params)
-    _, _, center = camera.tensors(device)
     grid_x, grid_y, ts = (camera.width + 15) // 16, (camera.height + 15) // 16, 16
     r = {}
 
@@ -512,9 +536,10 @@ def frame_stages(params, camera, capacity, device) -> dict[str, float]:
 
     stage("activations", lambda: (gm.get_opacity(params), gm.get_scaling(params),
                                   gm.get_rotation(params), gm.get_shs(params)))
+    # The preprocess kernel, with the SH colors as rasterize asks for them.
     prep = stage("preprocess", lambda: preprocess(xyz, camera, scales=scales, rotations=rots,
-                                                  opacities=opa))
-    colors = stage("sh_eval", lambda: eval_sh_color(SH_DEGREE, shs, xyz, center))
+                                                  opacities=opa, shs=shs, sh_degree=SH_DEGREE))
+    colors = prep.colors
     plan = stage("expand_slots", lambda: expand_slots(prep, grid_x, grid_y, capacity))
     gauss_s, _, starts = stage("sort_instances", lambda: sort_instances(
         plan.slot_rank, plan.slot_tile, xyz.shape[0], grid_x * grid_y))
@@ -2969,18 +2994,232 @@ def phase_parallel(device, card, s, fs, gate, capacity) -> dict:
     return {"launches": launches, "nccl_ms": nccl_ms}
 
 
+def prep_column_error(got, want) -> float:
+    """The largest |got − want| over the largest finite |want| of its column
+    (equal infinities and a NaN in both count as equal; a NaN in one, as an
+    error)."""
+    n = want.shape[0]
+    g, w = got.double().reshape(n, -1), want.double().reshape(n, -1)
+    same = (g == w) | (torch.isnan(g) & torch.isnan(w))
+    diff = torch.where(same, 0.0, (g - w).abs())
+    scale = torch.where(torch.isfinite(w), w.abs(), 0.0).amax(dim=0) + 1e-30
+    return float((diff / scale).max())
+
+
+def prep_bytes(*tensors) -> int:
+    """Bytes of the given tensors, each element once."""
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def phase_preprocess(device, card) -> list[dict]:
+    """The preprocess kernel pair at the main path's shapes against the plain
+    path and autograd through it; their launches over a train step, a
+    feature render's gradient and a no-grad render; times and byte bounds."""
+    from seganygaussians_torch import render as R
+    from seganygaussians_torch.models import gaussians as gm
+    from seganygaussians_torch.ops import preprocess_cuda, projection
+    from seganygaussians_torch.ops.binning import suggest_capacity
+    from seganygaussians_torch.ops.rasterize import RasterConfig
+    from seganygaussians_torch.ops.sh import eval_sh_color
+    from seganygaussians_torch.train.scene_trainer import train_step
+
+    fwd_k, bwd_k = preprocess_cuda.FORWARD, preprocess_cuda.BACKWARD
+    keys = ("xyz", "features_dc", "features_rest", "scaling", "rotation", "opacity")
+    s = random_scene(N_MAIN, 29, device, radius=PREP_RADIUS)
+    cap = N_MAIN + N_MAIN // 16  # dead slots, as a densifying scene has them
+    state = gm.with_training_fields(
+        gm.from_dense(*(s[k].cpu().numpy() for k in keys), capacity=cap, device=device))
+    del s
+    state.params.rotation[N_MAIN:, 0] = 1.0
+    cam = orbit_cameras(1, W_FULL, H_FULL)[0]
+    p = state.params
+    # The inputs as scene_trainer._render gives them to rasterize.
+    d = dict(means3d=p.xyz, scales=gm.get_scaling(p), rotations=gm.get_rotation(p),
+             opacities=gm.get_opacity(p).reshape(-1), active_mask=state.alive,
+             shs=gm.get_shs(p))
+    center = cam.tensors(device)[2]
+
+    def kernel_fwd():
+        return fwd_k(d["means3d"], cam, d["scales"], d["rotations"], None, d["opacities"],
+                     d["active_mask"], d["shs"], SH_DEGREE, 1.0, 16)
+
+    def plain_fwd(x):
+        prep = projection._preprocess_plain(x["means3d"], cam, x["scales"], x["rotations"],
+                                            None, 1.0, 16, x["active_mask"], x["opacities"])
+        return prep, eval_sh_color(SH_DEGREE, x["shs"], x["means3d"], center)
+
+    out = kernel_fwd()
+    with torch.no_grad():
+        prep, colors = plain_fwd(d)
+    torch.cuda.synchronize()
+    fwd_err = 0.0
+    for name, got, want in (("means2d", out[0], prep.means2d), ("depths", out[1], prep.depths),
+                            ("conics", out[2], prep.conics), ("colors", out[3], colors)):
+        err = prep_column_error(got, want)
+        check(err <= TOL_PREP_FWD, f"phase 15: preprocess_fwd {name} differs from the plain "
+              f"path by {err:.3g} of its column's largest value (tolerance {TOL_PREP_FWD})")
+        fwd_err = max(fwd_err, err)
+    off = torch.zeros(cap, dtype=torch.bool, device=device)
+    for got, want in ((out[4], prep.radii), (out[5], prep.rect_min), (out[6], prep.rect_max),
+                      (out[7], prep.tiles_touched), (out[8], prep.valid)):
+        off |= (got != want).reshape(cap, -1).any(dim=1)
+    n_off = int(off.sum())
+    rect_step = int(torch.cat([(out[5] - prep.rect_min).abs(),
+                               (out[6] - prep.rect_max).abs()], 1).max())
+    check(n_off <= MAX_PREP_OFF * cap and rect_step <= 1,
+          f"phase 15: {n_off} of {cap} Gaussians with an integer output apart from the plain "
+          f"path, largest rect step {rect_step}")
+    valid = out[8]
+    n_valid, n_culled_front = int(valid.sum()), int((prep.depths <= 0.2).sum())
+    off_image = ((prep.means2d[:, 0] < 0) | (prep.means2d[:, 0] >= W_FULL)) & (prep.depths > 0.2)
+    check(0 < n_valid < N_MAIN and n_culled_front > 0,
+          f"phase 15: {n_valid} valid, {n_culled_front} behind the near plane")
+    del prep, colors
+
+    # The backward, with the upstream gradients a scene step gives it: the
+    # blend's to means2d, conics and colors, zero on the rows it did not reach.
+    g = torch.Generator(device=device).manual_seed(31)
+    live = valid[:, None]
+    cot = tuple(torch.where(live, torch.randn(cap, w, generator=g, device=device), 0.0)
+                for w in (2, 3, 3))
+    grads = bwd_k(d["means3d"], cam, d["scales"], d["rotations"], None, d["shs"], SH_DEGREE,
+                  1.0, cot[0], None, cot[1], cot[2])
+    got = dict(zip(PREP_GEOMETRY, grads[:3] + grads[4:]))  # no cov3d given
+    leaves = {k: d[k].detach().requires_grad_(True) for k in PREP_GEOMETRY}
+    prep, colors = plain_fwd(dict(d, **leaves))
+    outs = (prep.means2d, prep.conics, colors)
+    auto = dict(zip(PREP_GEOMETRY, torch.autograd.grad(outs, list(leaves.values()), cot,
+                                                       retain_graph=True)))
+    # Exact zeros.  The structural ones agree exactly: every gradient of a row
+    # the blend did not reach, and the SH coefficients' (products, no sums)
+    # everywhere.  In a reached row's sums (means3d, scales, rotations) the
+    # kernel and autograd add float32 terms in other orders, so a sum that
+    # cancels to 0 on one side may leave a rounding residue on the other (about
+    # one sum in 2**24): allowed where that residue is within 1e-6 of its
+    # column's largest value, and counted.
+    bwd_err, cancelled = 0.0, {}
+    for name in PREP_GEOMETRY:
+        k, a = got[name].reshape(cap, -1), auto[name].reshape(cap, -1)
+        err = prep_column_error(k, a)
+        apart = (k == 0) != (a == 0)
+        structural = ((k != 0) | (a != 0)) & ~valid[:, None]
+        if name == "shs":
+            structural |= apart
+        residue = torch.where(k == 0, a, k).abs() / (a.abs().amax(dim=0) + 1e-30)
+        in_sums = apart & valid[:, None]
+        n_struct, n_big = int(structural.sum()), int((in_sums & (residue > TOL_PREP_FWD)).sum())
+        cancelled[name] = int(in_sums.sum())
+        check(err <= TOL_PREP_BWD and n_struct == 0 and n_big == 0,
+              f"phase 15: preprocess_bwd d_{name} differs from autograd through the plain path "
+              f"by {err:.3g} of its column's largest value (tolerance {TOL_PREP_BWD}); "
+              f"{n_struct} structural zeros apart; {cancelled[name]} zeros apart in sums, "
+              f"{n_big} of them with a residue over {TOL_PREP_FWD} of the column's largest value")
+        if cancelled[name]:
+            print(f"phase 15: d_{name}: {cancelled[name]} sums cancelled to 0 on one side only, "
+                  f"the other side's residue at most "
+                  f"{float(residue[in_sums].max()):.3g} of its column's largest value")
+        bwd_err = max(bwd_err, err)
+
+    # Times: the kernels by CUDA events, the plain path's forward and its
+    # autograd backward beside them (no yardstick of speed), and the bound of
+    # each kernel's bytes, every input read once and every output written once.
+    fwd_ms = float(np.median(cuda_time_ms(kernel_fwd, warmup=2, iters=10)))
+    bwd_ms = float(np.median(cuda_time_ms(lambda: bwd_k(
+        d["means3d"], cam, d["scales"], d["rotations"], None, d["shs"], SH_DEGREE, 1.0,
+        cot[0], None, cot[1], cot[2]), warmup=2, iters=10)))
+    with torch.no_grad():
+        plain_fwd_ms = float(np.median(cuda_time_ms(lambda: plain_fwd(d), warmup=1, iters=3)))
+    plain_bwd_ms = float(np.median(cuda_time_ms(lambda: torch.autograd.grad(
+        outs, list(leaves.values()), cot, retain_graph=True), warmup=1, iters=3)))
+    del prep, colors, outs, leaves, auto
+    fwd_bytes = prep_bytes(*(d[k] for k in ("means3d", "scales", "rotations", "opacities",
+                                            "active_mask", "shs")), *out)
+    bwd_bytes = prep_bytes(*(d[k] for k in PREP_GEOMETRY), *cot, *got.values())
+    fwd_bound = fwd_bytes / PEAK_BYTES_PER_S * 1e3
+    bwd_bound = bwd_bytes / PEAK_BYTES_PER_S * 1e3
+    del out, got, cot
+
+    # Launches, each window counted from 0: one train step (1 + 1), the
+    # gradient of a feature render on frozen geometry (1 + 0) and a no-grad
+    # SH render (1 + 0).
+    config = RasterConfig(capacity=suggest_capacity(int(kernel_fwd()[7].sum())))
+    gt = torch.rand(H_FULL, W_FULL, 3, generator=g, device=device)
+    bg = torch.zeros(3, device=device)
+    launches = {}
+
+    def window(name, fn):
+        torch.cuda.synchronize()
+        fwd_k.reset_counts()
+        bwd_k.reset_counts()
+        fn()
+        torch.cuda.synchronize()
+        launches[name] = (fwd_k.launches, bwd_k.launches)
+
+    def step():
+        new, metrics = train_step(state, cam, gt, bg, 1, 2.6 * 1.1, SH_DEGREE, gm.TrainHyper(),
+                                  config)
+        check(not metrics["overflow"] and not bool(metrics["nonfinite"]),
+              "phase 15: the train step overflowed or was non-finite")
+
+    def feature():
+        f = torch.randn(cap, 32, generator=g, device=device, requires_grad=True)
+        r = R.render_features(cam, p.xyz, d["opacities"], d["scales"], d["rotations"], f,
+                              alive=state.alive, config=config)
+        check(not r["overflow"], "phase 15: the feature render overflowed")
+        r["render"].square().mean().backward()
+
+    def no_grad():
+        with torch.no_grad():
+            check(not R.render(cam, state, bg, active_sh_degree=SH_DEGREE,
+                               config=config)["overflow"], "phase 15: the render overflowed")
+
+    window("train_step", step)
+    window("feature_render", feature)
+    window("render", no_grad)
+    check(launches == {"train_step": (1, 1), "feature_render": (1, 0), "render": (1, 0)},
+          f"phase 15: preprocess launches (forward, backward) by window {launches}")
+    print(f"phase 15: preprocess kernels at {N_MAIN} Gaussians (+{cap - N_MAIN} dead slots), "
+          f"{W_FULL}x{H_FULL}, SH {SH_DEGREE}: {n_valid} valid, {n_culled_front} behind the "
+          f"near plane, {int(off_image.sum())} in front but off the image; forward against the "
+          f"plain path {fwd_err:.3g} of a column's largest value, {n_off} Gaussians with an "
+          f"integer output apart (largest rect step {rect_step}); backward against autograd "
+          f"{bwd_err:.3g}, structural zeros equal, sums cancelled on one side only "
+          f"{cancelled}; forward {fwd_ms:.3f} ms (bound {fwd_bound:.3f} "
+          f"ms, {fwd_bound / fwd_ms:.1%}; plain {plain_fwd_ms:.3f}), backward {bwd_ms:.3f} ms "
+          f"(bound {bwd_bound:.3f} ms, {bwd_bound / bwd_ms:.1%}; plain autograd "
+          f"{plain_bwd_ms:.3f}); launches (forward, backward) {launches}  [{card}]")
+    del state, d
+    entries = []
+    for name, side, err, ms, plain_ms, bound_ms, nbytes in (
+            ("preprocess_fwd[SH=3]", 0, fwd_err, fwd_ms, plain_fwd_ms, fwd_bound, fwd_bytes),
+            ("preprocess_bwd[SH=3]", 1, bwd_err, bwd_ms, plain_bwd_ms, bwd_bound, bwd_bytes)):
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "seganygaussians_torch/csrc/preprocess.cu",
+            "replaces": None,  # XLA's fused ops in the JAX package, no TPU kernel
+            "max_rel_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "bytes": nbytes, "share_of_bound": bound_ms / ms,
+            "library_ms": None,
+            **{f"launches_{w}": v[side] for w, v in launches.items()},
+        })
+    return entries
+
+
 def build_kernels() -> None:
     """One nvcc per kernel source, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from seganygaussians_torch.ops import preprocess_cuda
     from seganygaussians_torch.ops.blend_cuda import BACKWARD, FORWARD
     from seganygaussians_torch.tools.bench_scan_variants import SCAN
 
-    kernels = (FORWARD, BACKWARD, SCAN)
+    # The preprocess pair shares one library: its forward builds it.
+    kernels = (FORWARD, BACKWARD, SCAN, preprocess_cuda.FORWARD)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as pool:
         for future in [pool.submit(k.library) for k in kernels]:
             future.result()
+    preprocess_cuda.BACKWARD.library()
     print(f"kernel builds (in parallel) + load: {time.perf_counter() - t0:.1f} s")
     for kernel in kernels:
         for ln in kernel.build_log.splitlines():
@@ -3039,6 +3278,8 @@ def main() -> int:
         seg_cli = timed("phase 11", phase_segment_cli, device, card, model_dir)
     finally:
         shutil.rmtree(model_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    prep_entries = timed("phase 15", phase_preprocess, device, card)
     # The C = 32 kernels' launches on this slice's paths, beside phase 2's and 5's.
     for entry in entries:
         if entry["name"].endswith("[C=32]"):
@@ -3092,6 +3333,7 @@ def main() -> int:
     entries += plan_entries
     entries.append(depth_entry)
     entries += scan_entries
+    entries += prep_entries
     worst = max(err_full, depth_entry["max_abs_err"], query["pixel_err"], session["pixel_err"],
                 session["narrow_err"], *small_errors.values())
     print(f"max |kernel - plain| over all comparisons: forward {worst:.3g}, "

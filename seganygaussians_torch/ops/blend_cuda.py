@@ -110,12 +110,13 @@ class _CudaKernel:
     (which also tells the tile sizes apart).
     """
 
-    name = ""  # source stem and C entry point prefix
+    name = ""  # C entry point prefix, and source stem unless ``stem`` names one
+    stem = ""  # the source a kernel shares with another (one library for both)
     argtypes: list = []
     count_keys: tuple = CHANNELS
 
     def __init__(self):
-        self.source = CSRC / f"{self.name}.cu"
+        self.source = CSRC / f"{self.stem or self.name}.cu"
         self.launches = 0
         self.launches_by_channels = dict.fromkeys(self.count_keys, 0)
         self.launches_by_instance: dict[str, int] = {}
@@ -136,10 +137,11 @@ class _CudaKernel:
         """Compile the source (once per content and flag set); return the .so."""
         digest = build_digest(self.source, NVCC_FLAGS)
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        lib_path = BUILD_DIR / f"lib{self.name}_{digest}.so"
+        lib_path = BUILD_DIR / f"lib{self.stem or self.name}_{digest}.so"
         if lib_path.exists():
             return lib_path
-        tmp = BUILD_DIR / f".{lib_path.name}.{os.getpid()}.tmp"
+        # Kernels that share a source may build at once, in threads of one process.
+        tmp = BUILD_DIR / f".{lib_path.name}.{os.getpid()}.{threading.get_ident()}.tmp"
         cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:

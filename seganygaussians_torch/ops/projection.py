@@ -14,6 +14,15 @@ default path: one vectorised pass over N Gaussians with validity masks.
 
 The 4×4 and 3×3 products are written out elementwise, and so are the row
 intervals, so they stay in full fp32 whatever the card's TF32 settings are.
+Each small sum is taken term by term, left to right, ((a0 + a1) + a2) + a3,
+not by a reduction whose order is PyTorch's to choose: the preprocess kernel
+follows the same order, so that its floats equal this path's.
+
+On CUDA tensors the whole stage, with the SH colors, is the kernel pair of
+``csrc/preprocess.cu`` (``ops/preprocess_cuda.py``), differentiable through
+its backward kernel; on CPU tensors, and with ``plain``, it is the plain path
+below, differentiable by autograd, and ``eval_sh_color`` for the colors.  The row intervals are
+PyTorch on both (no-grad, after the rects).
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from seganygaussians_torch.ops.camera import CameraParams
+from seganygaussians_torch.ops.sh import eval_sh_color
 from seganygaussians_torch.ops.transforms import build_covariance_3d
 from seganygaussians_torch.utils import tracing
 
@@ -40,11 +50,16 @@ class Preprocessed(NamedTuple):
     valid: torch.Tensor  # (N,) bool
     # (N, grid_y) int32 x0_tile | width << 10 per tile row, with row_footprints
     row_pack: Optional[torch.Tensor] = None
+    colors: Optional[torch.Tensor] = None  # (N, C) SH colors, when shs are given
 
 
 def _row_vec_mul(p: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
-    """(N, K) @ (K, J) as an elementwise sum (full fp32 on every device)."""
-    return torch.sum(p[:, :, None] * m[None, :, :], dim=1)
+    """(N, K) @ (K, J) as elementwise products summed left to right over K
+    (full fp32 on every device, in an order fixed by the code alone)."""
+    out = p[:, :1] * m[0]
+    for k in range(1, m.shape[0]):
+        out = out + p[:, k:k + 1] * m[k]
+    return out
 
 
 def project_points(
@@ -100,11 +115,14 @@ def compute_cov2d(
             dim=-1,
         )
 
+    def dot(a, b):  # summed left to right
+        return a[:, 0] * b[:, 0] + a[:, 1] * b[:, 1] + a[:, 2] * b[:, 2]
+
     s_m0 = sym_mul(m0)
     s_m1 = sym_mul(m1)
-    c_xx = torch.sum(m0 * s_m0, dim=-1) + 0.3
-    c_xy = torch.sum(m0 * s_m1, dim=-1)
-    c_yy = torch.sum(m1 * s_m1, dim=-1) + 0.3
+    c_xx = dot(m0, s_m0) + 0.3
+    c_xy = dot(m0, s_m1)
+    c_yy = dot(m1, s_m1) + 0.3
     return torch.stack([c_xx, c_xy, c_yy], dim=-1)
 
 
@@ -178,6 +196,107 @@ def _row_intervals(mx, my, conics, tau, rx0, rx1, ry0, ry1, grid_y: int, tile_si
     return tx0 | (w << 10), torch.sum(w, dim=-1, dtype=torch.int32)
 
 
+def _preprocess_plain(means3d, camera, scales, rotations, cov3d_precomp, scale_modifier,
+                      tile_size, active_mask, opacities) -> Preprocessed:
+    """:func:`preprocess` on any device, without the row intervals and colors:
+    the CPU path, and the forward kernel's plain counterpart."""
+    if cov3d_precomp is None:
+        cov3d = build_covariance_3d(scales, rotations, scale_modifier)
+    else:
+        cov3d = cov3d_precomp
+
+    world_view, full_proj, _ = camera.tensors(means3d.device)
+    p_proj, p_view = project_points(means3d, world_view, full_proj)
+    depths = p_view[:, 2]
+    in_front = depths > 0.2
+
+    cov2d = compute_cov2d(p_view, cov3d, camera, world_view)
+    det = cov2d[:, 0] * cov2d[:, 2] - cov2d[:, 1] * cov2d[:, 1]
+    det_valid = det != 0.0
+    det_inv = 1.0 / torch.where(det_valid, det, torch.ones_like(det))
+    conics = torch.stack(
+        [cov2d[:, 2] * det_inv, -cov2d[:, 1] * det_inv, cov2d[:, 0] * det_inv],
+        dim=-1,
+    )
+
+    mid = 0.5 * (cov2d[:, 0] + cov2d[:, 2])
+    disc = torch.sqrt(torch.clamp_min(mid * mid - det, 0.1))
+    lambda1 = mid + disc
+    radius_f = torch.ceil(3.0 * torch.sqrt(torch.clamp_min(lambda1, 1e-12)))
+
+    mx = ndc2pix(p_proj[:, 0], camera.width)
+    my = ndc2pix(p_proj[:, 1], camera.height)
+    means2d = torch.stack([mx, my], dim=-1)
+
+    grid_x = (camera.width + tile_size - 1) // tile_size
+    grid_y = (camera.height + tile_size - 1) // tile_size
+
+    # Rects and radii are structural (integers), so no gradient flows here.
+    with torch.no_grad():
+        if opacities is None:
+            rad_x = rad_y = radius_f
+            opa_visible = torch.ones_like(in_front)
+        else:
+            opa = opacities.detach().reshape(-1)
+            opa_visible = opa * 255.0 > 1.0
+            e = torch.sqrt(
+                torch.clamp_min(2.0 * torch.log(torch.clamp_min(opa, 1e-12) * 255.0), 0.0)
+            )
+            rad_x = torch.minimum(
+                e * torch.sqrt(torch.clamp_min(cov2d[:, 0], 0.0)) + 1.0, radius_f
+            )
+            rad_y = torch.minimum(
+                e * torch.sqrt(torch.clamp_min(cov2d[:, 2], 0.0)) + 1.0, radius_f
+            )
+
+        rx0 = _tile_index((mx - rad_x) / tile_size, grid_x)
+        ry0 = _tile_index((my - rad_y) / tile_size, grid_y)
+        rx1 = _tile_index((mx + rad_x + tile_size - 1) / tile_size, grid_x)
+        ry1 = _tile_index((my + rad_y + tile_size - 1) / tile_size, grid_y)
+        num_tiles = (rx1 - rx0) * (ry1 - ry0)
+
+        # Radii/visibility use the 3σ circle rect regardless of opacity.
+        r3x0 = _tile_index((mx - radius_f) / tile_size, grid_x)
+        r3y0 = _tile_index((my - radius_f) / tile_size, grid_y)
+        r3x1 = _tile_index((mx + radius_f + tile_size - 1) / tile_size, grid_x)
+        r3y1 = _tile_index((my + radius_f + tile_size - 1) / tile_size, grid_y)
+        visible = in_front & det_valid & ((r3x1 - r3x0) * (r3y1 - r3y0) > 0)
+        if active_mask is not None:
+            visible = visible & active_mask
+        valid = visible & (num_tiles > 0) & opa_visible
+        radii = torch.where(visible, radius_f, torch.zeros_like(radius_f)).to(torch.int32)
+        tiles_touched = torch.where(valid, num_tiles, torch.zeros_like(num_tiles))
+
+    return Preprocessed(
+        means2d=means2d,
+        depths=depths,
+        conics=conics,
+        radii=radii,
+        rect_min=torch.stack([rx0, ry0], dim=-1),
+        rect_max=torch.stack([rx1, ry1], dim=-1),
+        tiles_touched=tiles_touched.to(torch.int32),
+        valid=valid,
+    )
+
+
+def _with_row_footprints(prep: Preprocessed, opacities, camera, tile_size: int) -> Preprocessed:
+    """``prep`` with each tile row of its rects narrowed to the ellipse's
+    interval (:func:`_row_intervals`), no-grad."""
+    grid_y = (camera.height + tile_size - 1) // tile_size
+    with torch.no_grad():
+        opa = opacities.detach().reshape(-1)
+        tau = torch.log(torch.clamp_min(opa, 1e-12) * 255.0)
+        row_pack, num_tiles = _row_intervals(
+            prep.means2d[:, 0], prep.means2d[:, 1], prep.conics, tau, prep.rect_min[:, 0],
+            prep.rect_max[:, 0], prep.rect_min[:, 1], prep.rect_max[:, 1], grid_y, tile_size,
+        )
+        valid = prep.valid & (num_tiles > 0)
+        row_pack = torch.where(valid[:, None], row_pack, torch.zeros_like(row_pack))
+        tiles_touched = torch.where(valid, num_tiles, torch.zeros_like(num_tiles))
+    return prep._replace(valid=valid, tiles_touched=tiles_touched.to(torch.int32),
+                         row_pack=row_pack)
+
+
 def preprocess(
     means3d: torch.Tensor,
     camera: CameraParams,
@@ -189,6 +308,9 @@ def preprocess(
     active_mask: Optional[torch.Tensor] = None,
     opacities: Optional[torch.Tensor] = None,
     row_footprints: bool = False,
+    shs: Optional[torch.Tensor] = None,
+    sh_degree: int = 0,
+    plain: bool = False,
 ) -> Preprocessed:
     """Vectorised projection + culling + tile-rect stage.
 
@@ -199,95 +321,29 @@ def preprocess(
     keep the reference's 3σ semantics.  ``row_footprints`` (with
     ``opacities``) narrows each tile row of the rect to the ellipse's
     interval: ``row_pack`` holds the intervals and ``tiles_touched`` counts
-    their tiles.
+    their tiles.  ``shs`` (N, C, K) with ``sh_degree`` give ``colors``, the
+    view-dependent SH colors of :func:`ops.sh.eval_sh_color`.  ``plain``
+    takes the plain path on CUDA tensors too (``RasterConfig.backend ==
+    "torch"``).
     """
     with tracing.span("preprocess"):
-        if cov3d_precomp is None:
-            if scales is None or rotations is None:
-                raise ValueError("preprocess needs scales and rotations, or cov3d_precomp")
-            cov3d = build_covariance_3d(scales, rotations, scale_modifier)
+        if cov3d_precomp is None and (scales is None or rotations is None):
+            raise ValueError("preprocess needs scales and rotations, or cov3d_precomp")
+        if means3d.is_cuda and not plain:
+            from seganygaussians_torch.ops import preprocess_cuda
+
+            (means2d, depths, conics, colors, radii, rect_min, rect_max, tiles_touched,
+             valid) = preprocess_cuda.preprocess_fused(
+                means3d, camera, scales, rotations, cov3d_precomp, scale_modifier, tile_size,
+                active_mask, opacities, shs, sh_degree)
+            prep = Preprocessed(means2d, depths, conics, radii, rect_min, rect_max,
+                                tiles_touched, valid, colors=colors)
         else:
-            cov3d = cov3d_precomp
-
-        world_view, full_proj, _ = camera.tensors(means3d.device)
-        p_proj, p_view = project_points(means3d, world_view, full_proj)
-        depths = p_view[:, 2]
-        in_front = depths > 0.2
-
-        cov2d = compute_cov2d(p_view, cov3d, camera, world_view)
-        det = cov2d[:, 0] * cov2d[:, 2] - cov2d[:, 1] * cov2d[:, 1]
-        det_valid = det != 0.0
-        det_inv = 1.0 / torch.where(det_valid, det, torch.ones_like(det))
-        conics = torch.stack(
-            [cov2d[:, 2] * det_inv, -cov2d[:, 1] * det_inv, cov2d[:, 0] * det_inv],
-            dim=-1,
-        )
-
-        mid = 0.5 * (cov2d[:, 0] + cov2d[:, 2])
-        disc = torch.sqrt(torch.clamp_min(mid * mid - det, 0.1))
-        lambda1 = mid + disc
-        radius_f = torch.ceil(3.0 * torch.sqrt(torch.clamp_min(lambda1, 1e-12)))
-
-        mx = ndc2pix(p_proj[:, 0], camera.width)
-        my = ndc2pix(p_proj[:, 1], camera.height)
-        means2d = torch.stack([mx, my], dim=-1)
-
-        grid_x = (camera.width + tile_size - 1) // tile_size
-        grid_y = (camera.height + tile_size - 1) // tile_size
-
-        # Rects and radii are structural (integers), so no gradient flows here.
-        with torch.no_grad():
-            if opacities is None:
-                rad_x = rad_y = radius_f
-                opa_visible = torch.ones_like(in_front)
-            else:
-                opa = opacities.detach().reshape(-1)
-                opa_visible = opa * 255.0 > 1.0
-                e = torch.sqrt(
-                    torch.clamp_min(2.0 * torch.log(torch.clamp_min(opa, 1e-12) * 255.0), 0.0)
-                )
-                rad_x = torch.minimum(
-                    e * torch.sqrt(torch.clamp_min(cov2d[:, 0], 0.0)) + 1.0, radius_f
-                )
-                rad_y = torch.minimum(
-                    e * torch.sqrt(torch.clamp_min(cov2d[:, 2], 0.0)) + 1.0, radius_f
-                )
-
-            rx0 = _tile_index((mx - rad_x) / tile_size, grid_x)
-            ry0 = _tile_index((my - rad_y) / tile_size, grid_y)
-            rx1 = _tile_index((mx + rad_x + tile_size - 1) / tile_size, grid_x)
-            ry1 = _tile_index((my + rad_y + tile_size - 1) / tile_size, grid_y)
-            num_tiles = (rx1 - rx0) * (ry1 - ry0)
-
-            # Radii/visibility use the 3σ circle rect regardless of opacity.
-            r3x0 = _tile_index((mx - radius_f) / tile_size, grid_x)
-            r3y0 = _tile_index((my - radius_f) / tile_size, grid_y)
-            r3x1 = _tile_index((mx + radius_f + tile_size - 1) / tile_size, grid_x)
-            r3y1 = _tile_index((my + radius_f + tile_size - 1) / tile_size, grid_y)
-            visible = in_front & det_valid & ((r3x1 - r3x0) * (r3y1 - r3y0) > 0)
-            if active_mask is not None:
-                visible = visible & active_mask
-            valid = visible & (num_tiles > 0) & opa_visible
-            radii = torch.where(visible, radius_f, torch.zeros_like(radius_f)).to(torch.int32)
-
-            row_pack = None
-            if opacities is not None and row_footprints:
-                tau = torch.log(torch.clamp_min(opa, 1e-12) * 255.0)
-                row_pack, num_tiles = _row_intervals(
-                    mx, my, conics, tau, rx0, rx1, ry0, ry1, grid_y, tile_size
-                )
-                valid = valid & (num_tiles > 0)
-                row_pack = torch.where(valid[:, None], row_pack, torch.zeros_like(row_pack))
-            tiles_touched = torch.where(valid, num_tiles, torch.zeros_like(num_tiles))
-
-        return Preprocessed(
-            means2d=means2d,
-            depths=depths,
-            conics=conics,
-            radii=radii,
-            rect_min=torch.stack([rx0, ry0], dim=-1),
-            rect_max=torch.stack([rx1, ry1], dim=-1),
-            tiles_touched=tiles_touched.to(torch.int32),
-            valid=valid,
-            row_pack=row_pack,
-        )
+            prep = _preprocess_plain(means3d, camera, scales, rotations, cov3d_precomp,
+                                     scale_modifier, tile_size, active_mask, opacities)
+            if shs is not None:
+                _, _, cam_center = camera.tensors(means3d.device)
+                prep = prep._replace(colors=eval_sh_color(sh_degree, shs, means3d, cam_center))
+        if opacities is not None and row_footprints:
+            prep = _with_row_footprints(prep, opacities, camera, tile_size)
+        return prep

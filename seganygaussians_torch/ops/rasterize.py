@@ -6,15 +6,19 @@ and mask (extra alpha-composited channels) and 32-dim affinity features are
 the same call.
 
   preprocess (projection.py) — per-Gaussian projection, culling, tile rects
-                               (per-row intervals with ``row_footprints``)
+                               (per-row intervals with ``row_footprints``),
+                               SH colors; the kernel pair of
+                               csrc/preprocess.cu on CUDA tensors
   binning    (binning.py)    — depth sort, slot expansion, (tile, depth) sort;
                                analytic destinations on ``cuda_sortfree``
   blend      (blend_cuda.py on CUDA tensors, blend.py otherwise)
 
-Everything is differentiable.  On CUDA tensors the blend's forward and
-backward are the two Hopper kernels (``csrc/blend_fwd.cu``,
-``csrc/blend_bwd.cu``), with no fallback to autograd through ``blend.py``;
-on CPU tensors autograd runs through ``blend.py``.  ``ndc_offset`` is the
+Everything is differentiable.  On CUDA tensors the preprocess and the
+blend run forward and backward on the Hopper kernels (``csrc/preprocess.cu``,
+``csrc/blend_fwd.cu``, ``csrc/blend_bwd.cu``), with no fallback to autograd
+through the plain versions; on CPU tensors, and on any device with the
+``torch`` backend, autograd runs through ``projection.py``, ``sh.py`` and
+``blend.py``.  ``ndc_offset`` is the
 densification gradient input: pass zeros and differentiate with respect to
 it.
 """
@@ -31,7 +35,6 @@ from seganygaussians_torch.ops import blend_cuda
 from seganygaussians_torch.ops.binning import expand_slots, plan_instances
 from seganygaussians_torch.ops.camera import CameraParams
 from seganygaussians_torch.ops.projection import preprocess
-from seganygaussians_torch.ops.sh import eval_sh_color
 from seganygaussians_torch.utils import tracing
 
 BACKENDS = ("auto", "cuda", "cuda_sortfree", "torch")
@@ -41,10 +44,10 @@ BACKENDS = ("auto", "cuda", "cuda_sortfree", "torch")
 class RasterConfig:
     tile_size: int = 16
     capacity: int = 1 << 18  # instance budget (tile-overlap count)
-    # "auto": the CUDA kernel for CUDA tensors, the plain version for CPU
-    # tensors; "cuda": the kernel (CUDA tensors only); "cuda_sortfree": the
-    # sort-free plan (binning.plan_instances), then as "auto"; "torch": the
-    # plain version on any device.
+    # "auto": the CUDA kernels (preprocess and blend) for CUDA tensors, the
+    # plain versions for CPU tensors; "cuda": the kernels (CUDA tensors only);
+    # "cuda_sortfree": the sort-free plan (binning.plan_instances), then as
+    # "auto"; "torch": the plain versions on any device.
     backend: str = "auto"
     scale_modifier: float = 1.0
     # Per-tile-row ellipse footprints: fewer instances, the same image, a
@@ -109,6 +112,9 @@ def rasterize(
             active_mask=active_mask,
             opacities=opacities,
             row_footprints=config.row_footprints,
+            shs=shs,
+            sh_degree=sh_degree,
+            plain=backend == "torch",
         )
 
         means2d = prep.means2d
@@ -121,8 +127,7 @@ def rasterize(
             means2d = means2d + ndc_offset * scale_vec
 
         if colors is None:
-            _, _, cam_center = camera.tensors(device)
-            colors = eval_sh_color(sh_degree, shs, means3d, cam_center)
+            colors = prep.colors
 
         channels = [colors]
         if with_depth:

@@ -105,7 +105,12 @@ def eval_sh_color(
     direction, shifted by +0.5 and clamped at zero."""
     with tracing.span("preprocess"):
         dirs = means3d - cam_center[None, :]
-        dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True).clamp_min(1e-12)
+        x, y, z = dirs.unbind(-1)
+        # The norm summed left to right, as the preprocess kernel sums it;
+        # at 0 its gradient is 0 (as linalg.norm's), not sqrt's infinite one.
+        ss = (x * x + y * y) + z * z
+        norm = torch.where(ss > 0, torch.sqrt(torch.where(ss > 0, ss, 1.0)), 0.0)
+        dirs = dirs / norm.clamp_min(1e-12)[..., None]
         return torch.clamp_min(eval_sh(deg, sh, dirs) + 0.5, 0.0)
 
 

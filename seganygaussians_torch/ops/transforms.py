@@ -18,8 +18,10 @@ def build_rotation(q: torch.Tensor) -> torch.Tensor:
 
     q: (N, 4) → (N, 3, 3)
     """
-    q = q / torch.sqrt(torch.sum(q * q, dim=-1, keepdim=True))
     r, x, y, z = q.unbind(-1)
+    # Σq² summed left to right, as the preprocess kernel sums it.
+    norm = torch.sqrt(((r * r + x * x) + y * y) + z * z)
+    r, x, y, z = r / norm, x / norm, y / norm, z / norm
     R = torch.stack(
         [
             1 - 2 * (y * y + z * z),
@@ -48,10 +50,13 @@ def build_covariance_3d(
     """Packed symmetric 3D covariance (xx, xy, xz, yy, yz, zz), (N, 6).
 
     The 3×3 products are written out elementwise so they stay in full fp32
-    whatever the card's matmul precision setting.
+    whatever the card's matmul precision setting, and summed left to right,
+    as the preprocess kernel sums them.
     """
     L = build_scaling_rotation(scale_modifier * scales, rotations)
-    sigma = torch.sum(L[..., :, None, :] * L[..., None, :, :], dim=-1)
+    sigma = L[..., :, None, 0] * L[..., None, :, 0]
+    for k in (1, 2):
+        sigma = sigma + L[..., :, None, k] * L[..., None, :, k]
     return strip_symmetric(sigma)
 
 

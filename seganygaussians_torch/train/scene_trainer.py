@@ -37,7 +37,7 @@ def _render(params: gm.GaussianParams, alive, camera, bg, active_sh_degree, conf
         scales, rotations = gm.get_scaling(params), gm.get_rotation(params)
     return rasterize(
         params.xyz,
-        opacity[:, 0],
+        opacity.reshape(-1),  # a view: its backward is no select into zeros
         camera,
         shs=shs,
         sh_degree=active_sh_degree,

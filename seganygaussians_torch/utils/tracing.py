@@ -74,12 +74,20 @@ def _event():
     return ev
 
 
+_KERNEL_MODULES = (("seganygaussians_torch.ops.blend_cuda", "blend"),
+                   ("seganygaussians_torch.ops.preprocess_cuda", "preprocess"))
+
+
 def _kernels() -> dict:
-    """The blend kernels' launch counters, where the kernels module is loaded."""
-    mod = sys.modules.get("seganygaussians_torch.ops.blend_cuda")
-    if mod is None or not hasattr(mod, "BACKWARD"):
-        return {}
-    return {"blend_fwd": mod.FORWARD, "blend_bwd": mod.BACKWARD}
+    """The hand-written kernels' launch counters (``blend_fwd``,
+    ``blend_bwd``, ``preprocess_fwd``, ``preprocess_bwd``), of each kernels
+    module that is loaded."""
+    out = {}
+    for name, prefix in _KERNEL_MODULES:
+        mod = sys.modules.get(name)
+        if mod is not None and hasattr(mod, "BACKWARD"):
+            out.update({f"{prefix}_fwd": mod.FORWARD, f"{prefix}_bwd": mod.BACKWARD})
+    return out
 
 
 class _Store:

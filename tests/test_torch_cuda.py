@@ -9,7 +9,11 @@ on a machine with a card it runs without the JAX package:
 Tolerances are those the Pallas kernels are held to: color 1e-4, final_t
 5e-5, n_contrib exact; gradients within 2e-4 of each column's largest
 absolute value (float32 sums in another order, atomics whose order changes
-from run to run, and the U_total − prefix cancellation).
+from run to run, and the U_total − prefix cancellation).  The preprocess
+kernels (``csrc/preprocess.cu``) follow the plain path's order of operations:
+float outputs within 1e-6 of each column's largest value, integer outputs
+equal but for at most 1e-4 of the Gaussians one tile apart (a float within
+an ulp of a tile edge), gradients within 1e-5 with the same exact zeros.
 """
 
 import numpy as np
@@ -23,6 +27,8 @@ from seganygaussians_torch.ops.binning import expand_slots, sort_instances
 from seganygaussians_torch.ops.camera import make_camera
 from seganygaussians_torch.ops.projection import preprocess
 from seganygaussians_torch.ops.rasterize import RasterConfig, rasterize
+from preprocess_scenes import cotangents
+from preprocess_scenes import scene as preprocess_scene
 
 
 @pytest.fixture
@@ -839,3 +845,171 @@ def test_segment3d_and_text_segment_on_card_match_cpu(cuda):
     np.testing.assert_allclose(a.scores, b.scores, atol=1e-6, rtol=0)
     assert torch.equal(a.mask3d.cpu(), b.mask3d)
     assert 0 < int(b.mask3d.sum()) < n
+
+
+# --------------------------------------------------------------------------
+# The preprocess kernel pair
+# --------------------------------------------------------------------------
+
+PREPROCESS_CASES = [("rotated", d) for d in range(5)] + [("axis", 3), ("cov3d", 2), ("det0", 1),
+                                                    ("sliced", 2)]
+PREPROCESS_GEOMETRY = ("means3d", "scales", "rotations", "cov3d_precomp", "shs")
+
+
+def _preprocess_inputs(cuda, case, sh_degree, n=20000):
+    camera, inputs, live = preprocess_scene(21, case, sh_degree, n=n, dtype=torch.float32)
+    return camera, {k: v.to(cuda) if torch.is_tensor(v) else v for k, v in inputs.items()}, \
+        live.to(cuda)
+
+
+def _plain_preprocess(camera, d):
+    from seganygaussians_torch.ops import projection
+    from seganygaussians_torch.ops.sh import eval_sh_color
+
+    prep = projection._preprocess_plain(d["means3d"], camera, d.get("scales"),
+                                        d.get("rotations"), d.get("cov3d_precomp"), 1.0, 16,
+                                        d["active_mask"], d["opacities"])
+    colors = eval_sh_color(d["sh_degree"], d["shs"], d["means3d"],
+                           camera.tensors(d["means3d"].device)[2])
+    return prep, colors
+
+
+def _fused(camera, d):
+    from seganygaussians_torch.ops import preprocess_cuda
+
+    return preprocess_cuda.preprocess_fused(
+        d["means3d"], camera, d.get("scales"), d.get("rotations"), d.get("cov3d_precomp"), 1.0,
+        16, d["active_mask"], d["opacities"], d["shs"], d["sh_degree"])
+
+
+def _cols_within(got, want):
+    """The largest |got − want| as a share of each column's largest |want|."""
+    got, want = got.double().reshape(len(want), -1), want.double().reshape(len(want), -1)
+    scale = want.abs().amax(dim=0) + 1e-30
+    return float(((got - want).abs() / scale).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case, sh_degree", PREPROCESS_CASES,
+                         ids=[f"{c}-deg{d}" for c, d in PREPROCESS_CASES])
+def test_preprocess_forward_kernel_matches_plain(cuda, case, sh_degree):
+    from seganygaussians_torch.ops import preprocess_cuda
+
+    camera, d, _ = _preprocess_inputs(cuda, case, sh_degree)
+    n = d["means3d"].shape[0]
+    prep, colors = _plain_preprocess(camera, d)
+    before = preprocess_cuda.FORWARD.launches_by_channels[sh_degree]
+    got = _fused(camera, d)
+    torch.cuda.synchronize()
+    assert preprocess_cuda.FORWARD.launches_by_channels[sh_degree] == before + 1
+    for name, g, w in (("means2d", got[0], prep.means2d), ("depths", got[1], prep.depths),
+                       ("conics", got[2], prep.conics), ("colors", got[3], colors)):
+        err = _cols_within(g, w)
+        assert err <= 1e-6, f"{name}: {err:.3g} of the column's largest value"
+    # Integers: equal, but for a float within an ulp of a tile edge.
+    off = torch.zeros(n, dtype=torch.bool, device=cuda)
+    for g, w in ((got[4], prep.radii), (got[5], prep.rect_min), (got[6], prep.rect_max),
+                 (got[7], prep.tiles_touched), (got[8], prep.valid)):
+        off |= (g != w).reshape(n, -1).any(dim=1)
+    rect_step = torch.cat([(got[5] - prep.rect_min).abs(), (got[6] - prep.rect_max).abs()], 1)
+    print(f"preprocess {case} deg {sh_degree}: {int(off.sum())} of {n} Gaussians with an "
+          f"integer output apart, largest rect step {int(rect_step.max())}")
+    assert int(off.sum()) <= 1e-4 * n and int(rect_step.max()) <= 1
+    assert int(prep.valid.sum()) > n // 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case, sh_degree", PREPROCESS_CASES,
+                         ids=[f"{c}-deg{d}" for c, d in PREPROCESS_CASES])
+def test_preprocess_backward_kernel_matches_plain_and_autograd(cuda, case, sh_degree):
+    from seganygaussians_torch.ops import preprocess_cuda
+
+    camera, d, live = _preprocess_inputs(cuda, case, sh_degree)
+    n = d["means3d"].shape[0]
+    leaves = {k: d[k].detach().requires_grad_(True) for k in PREPROCESS_GEOMETRY if k in d}
+    full = dict(d, **leaves)
+    g = tuple(x.to(cuda) for x in cotangents(21, n, 3, live.cpu(), dtype=torch.float32))
+    before = preprocess_cuda.BACKWARD.launches
+    got = torch.autograd.grad(_fused(camera, full)[:4], list(leaves.values()), g)
+    torch.cuda.synchronize()
+    assert preprocess_cuda.BACKWARD.launches == before + 1
+    prep, colors = _plain_preprocess(camera, full)
+    auto = torch.autograd.grad([prep.means2d, prep.depths, prep.conics, colors],
+                               list(leaves.values()), g)
+    plain = dict(zip(PREPROCESS_GEOMETRY, preprocess_cuda.preprocess_backward_plain(
+        d["means3d"], camera, d.get("scales"), d.get("rotations"), d.get("cov3d_precomp"),
+        d["shs"], sh_degree, 1.0, *g)))
+    for name, kg, ag in zip(leaves, got, auto):
+        for ref_name, ref in (("autograd", ag), ("plain", plain[name])):
+            err = _cols_within(kg, ref)
+            assert err <= 1e-5, f"{name} against {ref_name}: {err:.3g}"
+            zeros = int(((kg == 0) != (ref == 0)).sum())
+            assert zeros == 0, f"{name} against {ref_name}: {zeros} exact zeros differ"
+    assert (got[0][~live] == 0).all()
+
+
+@pytest.mark.cuda
+def test_preprocess_kernels_launch_once_a_step(cuda):
+    """One train_step launches each preprocess kernel once; a feature render
+    (frozen geometry, given colors) and a no-grad SH render launch the
+    forward alone."""
+    from seganygaussians_torch.models import gaussians as gm
+    from seganygaussians_torch.ops import preprocess_cuda
+    from seganygaussians_torch.train import scene_trainer
+
+    rng = np.random.default_rng(4)
+    n = 300
+    pts = np.stack([rng.uniform(-0.6, 0.6, n), rng.uniform(-0.4, 0.4, n),
+                    3 + rng.uniform(-0.3, 0.3, n)], 1).astype(np.float32)
+    state = gm.with_training_fields(gm.create_from_points(
+        pts, rng.uniform(size=(n, 3)).astype(np.float32), 3, 320, device=cuda))
+    cam = make_camera(np.eye(3), np.zeros(3), fovx=0.9, fovy=0.7, width=64, height=48)
+    gt = torch.tensor(rng.uniform(size=(48, 64, 3)), dtype=torch.float32, device=cuda)
+    bg = torch.zeros(3, device=cuda)
+    config = RasterConfig(capacity=1 << 14)
+    fwd, bwd = preprocess_cuda.FORWARD, preprocess_cuda.BACKWARD
+
+    def launches(run):
+        f0, b0 = fwd.launches, bwd.launches
+        run()
+        torch.cuda.synchronize()
+        return fwd.launches - f0, bwd.launches - b0
+
+    step = launches(lambda: scene_trainer.train_step(state, cam, gt, bg, 1, 1.0, 3,
+                                                     gm.TrainHyper(), config))
+    p = state.params
+    geometry = (p.xyz, gm.get_opacity(p)[:, 0].detach(), gm.get_scaling(p).detach(),
+                gm.get_rotation(p).detach())
+    feats = torch.randn(320, 32, device=cuda, requires_grad=True)
+    feature = launches(lambda: rasterize(
+        geometry[0], geometry[1], cam, colors=feats, scales=geometry[2], rotations=geometry[3],
+        active_mask=state.alive, config=config).color.sum().backward())
+    with torch.no_grad():
+        no_grad = launches(lambda: rasterize(
+            geometry[0], geometry[1], cam, shs=gm.get_shs(p), sh_degree=3, scales=geometry[2],
+            rotations=geometry[3], active_mask=state.alive, config=config))
+    assert (step, feature, no_grad) == ((1, 1), (1, 0), (1, 0))
+    assert feats.grad.abs().max() > 0
+
+
+@pytest.mark.cuda
+def test_torch_backend_keeps_the_plain_preprocess_on_card(cuda):
+    """``backend="torch"`` runs the plain preprocess on CUDA tensors too, and
+    gives the kernels' image."""
+    from seganygaussians_torch.ops import preprocess_cuda
+
+    camera, d, _ = _preprocess_inputs(cuda, "rotated", 3, n=2000)
+    kw = dict(shs=d["shs"], sh_degree=3, scales=d["scales"], rotations=d["rotations"],
+              active_mask=d["active_mask"])
+    before = preprocess_cuda.FORWARD.launches
+    plain = rasterize(d["means3d"], d["opacities"], camera,
+                      config=RasterConfig(capacity=1 << 16, backend="torch"), **kw)
+    torch.cuda.synchronize()
+    assert preprocess_cuda.FORWARD.launches == before
+    fused = rasterize(d["means3d"], d["opacities"], camera, config=RasterConfig(capacity=1 << 16),
+                      **kw)
+    torch.cuda.synchronize()
+    assert preprocess_cuda.FORWARD.launches == before + 1
+    assert not plain.overflow and not fused.overflow
+    np.testing.assert_allclose(fused.color.cpu().numpy(), plain.color.cpu().numpy(), atol=1e-4,
+                               rtol=0)

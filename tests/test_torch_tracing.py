@@ -335,3 +335,42 @@ def test_profile_window_writes_trace_and_spans(tmp_path):
     trace = json.loads((tmp_path / "trace.json").read_text())
     names = {e.get("name") for e in trace["traceEvents"]}
     assert "saga:scene_step" in names and "saga:binning" in names
+
+
+def test_preprocess_kernels_launches_reach_spans_json(tmp_path, monkeypatch):
+    """Once the preprocess kernels' module is loaded, ``_kernels`` lists its
+    two counters beside the blend kernels', and a profiled window's
+    ``spans.json`` carries their launches (kernels stood in by counters)."""
+    from seganygaussians_torch.ops import blend_cuda, preprocess_cuda
+
+    kernels = tracing._kernels()
+    assert kernels["preprocess_fwd"] is preprocess_cuda.FORWARD
+    assert kernels["preprocess_bwd"] is preprocess_cuda.BACKWARD
+    assert kernels["blend_fwd"] is blend_cuda.FORWARD
+
+    class Counting:
+        def __init__(self, out):
+            self.out, self.launches = out, 0
+
+        def __call__(self, *args):
+            self.launches += 1
+            return self.out(*args)
+
+    n = 4
+    ints = (torch.zeros(n, dtype=torch.int32), torch.zeros(n, 2, dtype=torch.int32),
+            torch.zeros(n, 2, dtype=torch.int32), torch.zeros(n, dtype=torch.int32),
+            torch.ones(n, dtype=torch.bool))
+    fwd = Counting(lambda m, *_: (m[:, :2] * 1.0, m[:, 2] * 1.0, m * 1.0, None) + ints)
+    bwd = Counting(lambda m, *a: (torch.ones_like(m), None, None, None, None))
+    monkeypatch.setattr(preprocess_cuda, "FORWARD", fwd)
+    monkeypatch.setattr(preprocess_cuda, "BACKWARD", bwd)
+    means = torch.ones(n, 3, requires_grad=True)
+    window = tracing.ProfileWindow(str(tmp_path), first=0, count=1)
+    window.after(0)
+    out = preprocess_cuda.preprocess_fused(means, camera(), cov3d_precomp=torch.ones(n, 6))
+    torch.autograd.grad(out[0].sum(), [means])
+    preprocess_cuda.preprocess_fused(means.detach(), camera(), cov3d_precomp=torch.ones(n, 6))
+    window.close()
+    launches = json.loads((tmp_path / "spans.json").read_text())["launches"]
+    assert launches["preprocess_fwd"] == 2 and launches["preprocess_bwd"] == 1
+    assert launches["blend_fwd"] == 0 and launches["blend_bwd"] == 0
