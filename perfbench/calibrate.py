@@ -11,7 +11,10 @@ window and prints its readings (the numbers compared, before any limit).
 The control is the reference one precision step below the configuration's
 (float32 with TF32 off → TF32: ``reference/arith.py``) put in the
 program's place: its outputs are compared with the IEEE reference's by the
-same numbers.  One JSON line per reading.
+same numbers.  The feature cells' neighbour readings, the control and the
+fault follow the configuration's ``feature.smooth_type``.  A kind with a
+runner of its own (``perfbench/runners/<kind>.py``) gives its control by
+that file's ``control(cell)``.  One JSON line per reading.
 """
 
 from __future__ import annotations
@@ -54,15 +57,29 @@ def control_scene_train(cell) -> dict:
                                                 checks.moving_leaves(ref["grad1"]))}
 
 
-def control_map(cell, xyz, smooth_map) -> float:
+def program_smoothing(cell) -> cells.Smoothing:
+    """What the program smooths over in the cell's runner: the maps of the
+    trainer that ``feature_train`` builds, or the K-neighbour map that
+    ``segment``'s session gets."""
+    if cell.mix["kind"] == "feature_train":
+        return cells.feature_trainer(cell).smoothing
+    return cells.smoothing_of(cell, cells.feature_inputs(cell)[-1])
+
+
+def control_map(cell, xyz, sm: cells.Smoothing) -> float:
     """The exact kNN put in the program's place, computed in TF32: its
-    neighbours' miss share against the IEEE one on the runs' sample of rows."""
-    k = smooth_map.shape[1] - 1
+    neighbours' miss share against the IEEE one on the runs' sample of rows,
+    the worst of the smoothing's levels."""
     g = scene.generator(cell.seed, 11, cell.device)
     rows = torch.randperm(xyz.shape[0], generator=g, device=cell.device)[: cell.mix["map_rows"]]
-    _, d2 = rf.nearest(xyz, rows, k, Arith(False))
-    nbrs, _ = rf.nearest(xyz, rows, k, Arith(True))
-    return rf.neighbour_misses(xyz, rows, nbrs, d2[:, -1])
+    miss = 0.0
+    for level in sm.levels:
+        cols, source, itself = level.neighbours()
+        k = cols.shape[1]
+        _, d2 = rf.nearest(xyz, rows, k, Arith(False), source=source)
+        ctl, _ = rf.nearest(xyz, rows, k, Arith(True), source=source)
+        miss = max(miss, rf.neighbour_misses(xyz, rows, ctl, d2[:, -1], itself))
+    return miss
 
 
 def altered_map(smooth_map):
@@ -74,27 +91,32 @@ def altered_map(smooth_map):
     return bad
 
 
+def altered(sm: cells.Smoothing) -> cells.Smoothing:
+    """:func:`altered_map` of every level's map."""
+    return sm._replace(levels=tuple(lv._replace(map=altered_map(lv.map)) for lv in sm.levels))
+
+
 def map_readings(cell) -> dict:
-    """The neighbour map's readings without a run: the program's, the
-    control's, and the altered map's."""
+    """The neighbour maps' readings without a run: the program's, the
+    control's, and the altered maps'."""
+    sm = program_smoothing(cell)
     xyz = scene.gaussians(cell.config, cell.seed, cell.device)["xyz"]
-    smooth_map = cells.fgm.build_smooth_map(xyz, int(cell.config["feature"]["smooth_k"]))
-    program = dict((n, v) for n, v, _ in cells.map_checks(cell, xyz, smooth_map))
-    fault = dict((n, v) for n, v, _ in cells.map_checks(cell, xyz, altered_map(smooth_map)))
-    return {"program": program, "control": {"knn_miss": control_map(cell, xyz, smooth_map)},
+    program = dict((n, v) for n, v, _ in cells.map_checks(cell, xyz, sm))
+    fault = dict((n, v) for n, v, _ in cells.map_checks(cell, xyz, altered(sm)))
+    return {"program": program, "control": {"knn_miss": control_map(cell, xyz, sm)},
             "fault": fault}
 
 
 def control_feature_train(cell) -> dict:
-    params = scene.gaussians(cell.config, cell.seed, cell.device)
-    smooth_map = cells.fgm.build_smooth_map(params["xyz"], int(cell.config["feature"]["smooth_k"]))
-    knn = control_map(cell, params["xyz"], smooth_map)
-    del params
+    sm = program_smoothing(cell)
+    xyz = scene.gaussians(cell.config, cell.seed, cell.device)["xyz"]
+    knn = control_map(cell, xyz, sm)
+    del xyz
     seed = cells.program_seed(cell.seed)
     v = int(cell.config["views"])
     order = cells.camera_sequence(seed, v, 1) + cells.camera_sequence(seed, v, 2)
-    ref = cells.reference_feature_steps(cell, smooth_map, order, Arith(False))
-    ctl = cells.reference_feature_steps(cell, smooth_map, order, Arith(True))
+    ref = cells.reference_feature_steps(cell, sm, order, Arith(False))
+    ctl = cells.reference_feature_steps(cell, sm, order, Arith(True))
     return {"loss1_gap": checks.loss_gap(ctl["losses"][:1], ref["losses"][:1]),
             "loss_gap_3steps": checks.loss_gap(ctl["losses"], ref["losses"]),
             "grad_gap": checks.worst_leaf_gap(ctl["grad1"], ref["grad1"]),
@@ -108,8 +130,7 @@ def control_feature_train(cell) -> dict:
 
 def control_segment(cell, frames: int = 3) -> dict:
     cfg, mix, dev = cell.config, cell.mix, cell.device
-    params, feats, gate = cells.seeded_features(cell)
-    smooth_map = cells.fgm.build_smooth_map(params["xyz"], int(cfg["feature"]["smooth_k"]))
+    params, feats, gate, _, smooth_map = cells.feature_inputs(cell)
     geom = cells.reference_geometry(params)
     rng = np.random.default_rng([int(cell.seed), 9])
     gen = cells.orbit_requests(cfg, mix, cell.seed)
@@ -137,12 +158,18 @@ def control_segment(cell, frames: int = 3) -> dict:
         out["mask_off"] = checks.mask_off_share(res[True][1] > 0.75, res[False][1], 0.75,
                                                 mix["mask_tol"])
         out["map_faults"] = 0.0
-        out["knn_miss"] = control_map(cell, params["xyz"], smooth_map)
+        out["knn_miss"] = control_map(cell, params["xyz"], cells.smoothing_of(cell, smooth_map))
     return out
 
 
 CONTROLS = {"scene_train": control_scene_train, "feature_train": control_feature_train,
             "segment": control_segment}
+
+
+def control_of(root: Path, kind: str):
+    if kind in CONTROLS:
+        return CONTROLS[kind]
+    return harness.load_file_module(root / "perfbench" / "runners" / f"{kind}.py").control
 
 
 def main() -> int:
@@ -163,7 +190,7 @@ def main() -> int:
         cell = harness.Cell(Path(root), bench, workload, a, device,
                             time.perf_counter())
         t = time.perf_counter()
-        out = cells.KINDS[cell.mix["kind"]](cell)
+        out = harness.runner_of(Path(root), cell.mix["kind"], cells.KINDS)(cell)
         print(json.dumps({"reading": "program", "seed": seed,
                           "checks": {n: v for n, v, _ in out.checks},
                           "readings": out.readings,
@@ -185,7 +212,7 @@ def main() -> int:
         cell = harness.Cell(Path(root), bench, workload, a, device,
                             time.perf_counter())
         cell.mix["rate_per_s"] = rate
-        out = cells.KINDS[cell.mix["kind"]](cell)
+        out = harness.runner_of(Path(root), cell.mix["kind"], cells.KINDS)(cell)
         print(json.dumps({"reading": "sweep", "rate_per_s": rate, "end_to_end": out.end_to_end,
                           "attempted": out.attempted}), flush=True)
         torch.cuda.empty_cache()
@@ -194,7 +221,7 @@ def main() -> int:
         cell = harness.Cell(Path(root), bench, workload, a, device,
                             time.perf_counter())
         t = time.perf_counter()
-        res = CONTROLS[cell.mix["kind"]](cell)
+        res = control_of(Path(root), cell.mix["kind"])(cell)
         print(json.dumps({"reading": "control", "seed": seed, "checks": res,
                           "seconds": time.perf_counter() - t}), flush=True)
         torch.cuda.empty_cache()

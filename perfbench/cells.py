@@ -8,7 +8,12 @@ the window produced to the plain reference (``perfbench/reference``).
 * ``scene_train``: ``SceneTrainer.run`` from iteration ``start_iteration``.
 * ``segment``: one user of ``SagaSession``: similarity frames and clicks,
   ``segment3d`` and ``roll_back``.
-* ``feature_train``: ``ContrastiveTrainer.run`` on seeded masks.
+* ``feature_train``: ``ContrastiveTrainer.run`` on seeded masks, smoothed as
+  the configuration's ``feature.smooth_type`` says (``traditional`` or
+  ``multi_res``).
+
+A kind that is not here is run by ``perfbench/runners/<kind>.py``
+(``perfbench/harness.py``).
 """
 
 from __future__ import annotations
@@ -16,12 +21,13 @@ from __future__ import annotations
 import math
 import time
 from types import SimpleNamespace
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from perfbench import checks, readers, scene, trace
-from perfbench.harness import Cell, Outcome
+from perfbench.harness import Cell, Outcome, Refused
 from perfbench.reference import render as rr
 from perfbench.reference import train as rt
 from perfbench.reference.arith import Arith
@@ -337,6 +343,9 @@ def segment_sample(mix: dict, count: int, rng) -> set[int]:
 
 def segment(cell: Cell) -> Outcome:
     cfg, mix, dev = cell.config, cell.mix, cell.device
+    if cfg["feature"]["smooth_type"] != "traditional":
+        raise Refused(f"segment runs SagaSession, which smooths over the K-neighbour map only; "
+                      f"smooth_type is {cfg['feature']['smooth_type']!r}")
     out = Outcome()
     params, feats, gate, geom, smooth_map = feature_inputs(cell)
     fs = fgm.FeatureState(geom=geom, point_features=feats, smooth_map=smooth_map, opt=None)
@@ -463,7 +472,7 @@ def segment(cell: Cell) -> Outcome:
                                                                session_threshold, mix["mask_tol"]))
         out.checks = [("similarity_off", sim_off, limit(cell, "similarity_off")),
                       ("mask_off", mask_off, limit(cell, "mask_off"))]
-        out.checks += map_checks(cell, params["xyz"], smooth_map)
+        out.checks += map_checks(cell, params["xyz"], smoothing_of(cell, smooth_map))
     if cell.trace:
         n, d = cfg["num_gaussians"], int(cfg["feature"]["dim"])
         k = int(cfg["feature"]["smooth_k"])
@@ -485,38 +494,130 @@ def segment(cell: Cell) -> Outcome:
     return out
 
 
-def map_checks(cell: Cell, xyz, smooth_map) -> list:
-    """The program's neighbour map against an exact kNN of the seed's points
-    (``reference/features.nearest``) on a seeded sample of ``map_rows`` rows."""
-    k = smooth_map.shape[1] - 1
+class Level(NamedTuple):
+    """One neighbour map that the smoothing averages over, as the program
+    holds it.  ``self_first``: column 0 is the point itself and the rest its
+    nearest other points (the K-neighbour map); else the map lists each
+    point's nearest points of a subsample, the point itself among them where
+    it is one (a multi-resolution level).  ``step_cols``: the columns a
+    training step averages over."""
+    map: torch.Tensor
+    self_first: bool
+    step_cols: int
+
+    def neighbours(self) -> tuple:
+        """(neighbour columns (N, k), the points they are drawn from as
+        indices or None for all, whether a point is its own neighbour).  A
+        level's subsample is the set of indices its map holds: a subsampled
+        point is queried from its own position and finds itself at distance
+        0, so the set is exact, and :func:`map_faults` holds that."""
+        if self.self_first:
+            return self.map[:, 1:], None, False
+        return self.map, level_source(self.map), True
+
+
+class Smoothing(NamedTuple):
+    """What the feature field smooths over: ``kind`` the configuration's
+    ``feature.smooth_type``, its levels, and ``sums`` the additions of N·d
+    that put the levels together."""
+    kind: str
+    levels: tuple
+    sums: int
+
+    @property
+    def maps(self) -> tuple:
+        return tuple(level.map for level in self.levels)
+
+
+def smoothing_of(cell: Cell, smooth_map, trainer=None) -> Smoothing:
+    """The configuration's smoothing over the program's maps: the
+    K-neighbour map ``smooth_map`` (``traditional``), or the levels the
+    ``trainer`` built (``multi_res``, :func:`level_maps`)."""
+    f = cell.config["feature"]
+    if f["smooth_type"] == "traditional":
+        k = int(f["smooth_k"] * f["smooth_dropout"])
+        return Smoothing("traditional", (Level(smooth_map, True, k),), 0)
+    if f["smooth_type"] == "multi_res" and trainer is not None:
+        maps = level_maps(cell, trainer)
+        return Smoothing("multi_res", tuple(Level(m, False, m.shape[1]) for m in maps), len(maps))
+    raise Refused(f"{cell.mix['kind']} has no reference for smooth_type {f['smooth_type']!r}")
+
+
+def map_checks(cell: Cell, xyz, smoothing: Smoothing) -> list:
+    """The program's neighbour maps against an exact kNN of the seed's points
+    (``reference/features.nearest``) on a seeded sample of ``map_rows`` rows:
+    ``map_faults`` (:func:`map_faults`), and ``knn_miss`` the worst level's
+    share of neighbours that are not among the exact nearest
+    (:meth:`Level.neighbours`)."""
     g = scene.generator(cell.seed, 11, cell.device)
     rows = torch.randperm(xyz.shape[0], generator=g, device=cell.device)[: cell.mix["map_rows"]]
-    _, d2 = rf.nearest(xyz, rows, k, Arith(tf32=False))
-    miss = rf.neighbour_misses(xyz, rows, smooth_map[rows, 1:], d2[:, -1])
-    return [("map_faults", map_faults(smooth_map), limit(cell, "map_faults")),
+    miss = 0.0
+    for level in smoothing.levels:
+        cols, source, itself = level.neighbours()
+        _, d2 = rf.nearest(xyz, rows, cols.shape[1], Arith(tf32=False), source=source)
+        given = cols[rows].clamp(0, xyz.shape[0] - 1)  # an index out of range is a map fault
+        miss = max(miss, rf.neighbour_misses(xyz, rows, given, d2[:, -1], itself))
+    return [("map_faults", map_faults(smoothing), limit(cell, "map_faults")),
             ("knn_miss", miss, limit(cell, "knn_miss"))]
 
 
-def map_faults(smooth_map) -> float:
-    """Share of rows of the neighbour map that are not a neighbour list of
-    their own point: column 0 not the point itself, or an index out of range."""
-    n = smooth_map.shape[0]
-    rows = torch.arange(n, device=smooth_map.device)
-    bad = (smooth_map[:, 0] != rows) | (smooth_map < 0).any(1) | (smooth_map >= n).any(1)
+def level_source(level_map) -> torch.Tensor:
+    """The indices in range that a level's map holds: its subsample."""
+    n = level_map.shape[0]
+    member = torch.zeros(n, dtype=torch.bool, device=level_map.device)
+    member[level_map[(level_map >= 0) & (level_map < n)]] = True
+    return torch.nonzero(member).flatten()
+
+
+def map_faults(smoothing: Smoothing) -> float:
+    """Share of points whose row of some level's map is not a neighbour list
+    of their own: an index out of range, or the point not where its level
+    puts it (column 0 of the K-neighbour map; anywhere in its row of a
+    level whose subsample holds it)."""
+    bad = None
+    for level in smoothing.levels:
+        m = level.map
+        n = m.shape[0]
+        rows = torch.arange(n, device=m.device)
+        if level.self_first:
+            own = m[:, 0] != rows
+        else:
+            member = torch.zeros(n, dtype=torch.bool, device=m.device)
+            member[level_source(m)] = True
+            own = member & ~(m == rows[:, None]).any(1)
+        row_bad = own | (m < 0).any(1) | (m >= n).any(1)
+        bad = row_bad if bad is None else bad | row_bad
     return float(bad.float().mean())
 
 
-def initial_features(cell: Cell, n: int) -> torch.Tensor:
-    """Features as a new feature field starts them: randn · 1e-2."""
-    g = scene.generator(cell.seed, 7, cell.device)
-    d = int(cell.config["feature"]["dim"])
-    return 1e-2 * torch.randn(n, d, generator=g, device=cell.device)
+def level_maps(cell: Cell, trainer) -> tuple:
+    """The trainer's multi-resolution maps, refused unless they are the
+    levels the configuration states (``feature.multi_res``): the same widths,
+    and subsamples within six standard deviations of the stated rates."""
+    stated = cell.config["feature"].get("multi_res")
+    if stated is None:
+        raise Refused("smooth_type multi_res, but the configuration states no feature.multi_res")
+    maps = trainer.consts.multi_res_maps
+    ks = [m.shape[1] for m in maps]
+    if ks != [int(k) for k in stated["ks"]] or len(stated["sample_rates"]) != len(ks):
+        raise Refused(f"the trainer built levels of widths {ks}; the configuration states "
+                      f"{stated}")
+    for m, rate in zip(maps, stated["sample_rates"]):
+        n, p = m.shape[0], min(float(rate), 1.0)
+        share = level_source(m).numel() / n
+        if abs(share - p) > 6 * math.sqrt(p * (1 - p) / n) + 1 / n:
+            raise Refused(f"a level's subsample holds {share:.4f} of the points; the "
+                          f"configuration states the rate {rate}")
+    return maps
 
 
-def feature_train(cell: Cell) -> Outcome:
-    cfg, mix, dev = cell.config, cell.mix, cell.device
+def feature_trainer(cell: Cell) -> SimpleNamespace:
+    """The ``ContrastiveTrainer`` a ``feature_train`` run times, built from
+    the seed, with its start (``start``: the features and the gate),
+    its smoothing (:func:`smoothing_of`), its cameras and their seed-made
+    views (``cams``)."""
+    cfg, dev = cell.config, cell.device
     f = cfg["feature"]
-    out = Outcome()
     params, _, gate, geom, smooth_map = feature_inputs(cell)
     cams = scene.views(cfg, cell.seed)
     config = RasterConfig(tile_size=cfg["tile_size"],
@@ -533,10 +634,32 @@ def feature_train(cell: Cell) -> Outcome:
     hyper = ContrastiveHyper(num_sampled_rays=int(f["num_sampled_rays"]),
                              smooth_k=int(f["smooth_k"]), smooth_dropout=float(f["smooth_dropout"]),
                              smooth_type=f["smooth_type"])
-    seed = program_seed(cell.seed)
     trainer = ContrastiveTrainer(fs, ScaleGateParams(w0, b0), cameras, hyper=hyper,
-                                 config=config, seed=seed)
-    del params, fs, geom
+                                 config=config, seed=program_seed(cell.seed))
+    # What the trainer smooths over, set-up state that map_checks holds to an
+    # exact kNN.  Under multi_res the K-neighbour map is built all the same,
+    # as the contrastive CLI's feature model builds it.
+    return SimpleNamespace(trainer=trainer, cameras=cameras, cams=cams,
+                           start={"features": pf0, "w": w0, "b": b0},
+                           smoothing=smoothing_of(cell, smooth_map, trainer))
+
+
+def initial_features(cell: Cell, n: int) -> torch.Tensor:
+    """Features as a new feature field starts them: randn · 1e-2."""
+    g = scene.generator(cell.seed, 7, cell.device)
+    d = int(cell.config["feature"]["dim"])
+    return 1e-2 * torch.randn(n, d, generator=g, device=cell.device)
+
+
+def feature_train(cell: Cell) -> Outcome:
+    cfg, mix, dev = cell.config, cell.mix, cell.device
+    f = cfg["feature"]
+    out = Outcome()
+    built = feature_trainer(cell)
+    trainer, cameras, cams, sm = built.trainer, built.cameras, built.cams, built.smoothing
+    pf0, w0, b0 = built.start["features"], built.start["w"], built.start["b"]
+    seed = program_seed(cell.seed)
+    del built
     for i, cam in enumerate(cameras):
         trainer._prep(i)  # the mask stacks on the device once, as in a run
         cam.sam_masks = None
@@ -584,7 +707,7 @@ def feature_train(cell: Cell) -> Outcome:
 
     ar = Arith(tf32=False)
     order = camera_sequence(seed, len(cams), 1) + camera_sequence(seed, len(cams), 2)
-    ref = reference_feature_steps(cell, smooth_map, order, ar)
+    ref = reference_feature_steps(cell, sm, order, ar)
     # The first step's loss, every leaf's first gradient and the change of
     # the moving leaves after the first step.  Adam's first step moves a few
     # hundred feature coordinates whose gradient is rounding by a full lr on
@@ -598,29 +721,32 @@ def feature_train(cell: Cell) -> Outcome:
                                              checks.moving_leaves(ref["grad1"])),
          limit(cell, "change_gap")),
     ]
-    out.checks += map_checks(cell, scene.gaussians(cfg, cell.seed, dev)["xyz"], smooth_map)
+    out.checks += map_checks(cell, scene.gaussians(cfg, cell.seed, dev)["xyz"], sm)
     out.readings = {"losses": (prog_losses, ref["losses"]), "grad1": (grad1, ref["grad1"]),
                     "change1": (change1, ref["change1"]), "change": (change, ref["change"])}
     if cell.trace:
         params = scene.gaussians(cfg, cell.seed, dev)
-        d, k = int(f["dim"]), int(f["smooth_k"] * f["smooth_dropout"])
-        colors = rf.safe_normalize(rf.smooth(initial_features(cell, params["xyz"].shape[0]),
-                                             smooth_map))
+        d = int(f["dim"])
+        colors = rf.safe_normalize(rf.smoothing(
+            sm.kind, initial_features(cell, params["xyz"].shape[0]), sm.maps))
         frames = frame_work(params, [cams[v] for v in traced_views[: mix["work_sample"]]], ar,
                             channels=d, colors=colors)
         n = cfg["num_gaussians"]
         work = {"blend_fwd": mean_work([work_blend.forward(x) for x in frames]),
                 "blend_bwd": mean_work([work_blend.backward(x) for x in frames]),
-                "step": mean_work([work_step.feature_train(n, k, d, int(f["num_sampled_rays"]),
+                "step": mean_work([work_step.feature_train(n, [lv.step_cols for lv in sm.levels],
+                                                           sm.sums, d,
+                                                           int(f["num_sampled_rays"]),
                                                            rf.NUM_SAMPLED_SCALES + 2, x)
                                    for x in frames])}
         out.metric_context = readers.Context(tr, window_s / steps, work, [])
     return out
 
 
-def reference_feature_steps(cell: Cell, smooth_map, order: list, ar: Arith) -> dict:
-    """The reference's three contrastive steps from the seed's inputs, on the
-    program's neighbour map, with the trainer's draws."""
+def reference_feature_steps(cell: Cell, sm: Smoothing, order: list, ar: Arith) -> dict:
+    """The reference's three contrastive steps from the seed's inputs,
+    smoothed as ``sm`` over the program's neighbour maps, with the trainer's
+    draws."""
     cfg, dev = cell.config, cell.device
     f = cfg["feature"]
     params, _, gate = seeded_features(cell)
@@ -638,10 +764,12 @@ def reference_feature_steps(cell: Cell, smooth_map, order: list, ar: Arith) -> d
     losses, grad1 = [], None
     for i, v in enumerate(order):
         m = rf.sorted_masks(*(torch.as_tensor(x, device=dev) for x in stacks[v]))
-        d = rf.draw(g, m, int(f["num_sampled_rays"]), int(f["smooth_k"]), float(f["smooth_dropout"]))
+        d = rf.draw(g, m, int(f["num_sampled_rays"]), int(f["smooth_k"]), float(f["smooth_dropout"]),
+                    sm.kind)
         loss, gf, gw, gb = rf.contrastive_grads(leaves["features"], leaves["w"], leaves["b"],
-                                                smooth_map, geom, rr.camera_on(cams[v], dev), m, d,
-                                                upper, quantiles, ar)
+                                                sm.kind, sm.maps, geom,
+                                                rr.camera_on(cams[v], dev), m, d, upper, quantiles,
+                                                ar)
         grads = {"features": gf, "w": gw, "b": gb}
         if i == 0:
             grad1 = {k: float(torch.linalg.vector_norm(x.double())) for k, x in grads.items()}

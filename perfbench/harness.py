@@ -3,12 +3,15 @@
 ``BENCHMARK.json`` names each cell's configuration and traffic mix.  A
 configuration is ``perfbench/configs/<config>.json``, a traffic mix is
 ``perfbench/traffic/<traffic>.json`` (its ``kind`` picks one of the general
-runners in ``perfbench/cells.py``, the rest are its parameters), a cell's
+runners in ``perfbench/cells.py``, or else the runner ``run(cell)`` of
+``perfbench/runners/<kind>.py``; the rest are its parameters), a cell's
 limits for ``correct`` are ``perfbench/limits/<cell>.json``, and a per-layer
 metric ``<quantity>.<split>`` is read by ``perfbench/metrics/<quantity>.<split>.py``
 or, where the splits read alike, ``perfbench/metrics/<quantity>.py``: its
-``read(ctx)`` returns the value or None.  So a new configuration, mix, cell or metric is new files and
-new entries in ``BENCHMARK.json``, never an edit of a file here.
+``read(ctx)`` returns the value or None.  So a new configuration, mix, cell, metric or
+kind of runner is new files and new entries in ``BENCHMARK.json``, never an
+edit of a file here.  A runner that cannot run a cell as configured raises
+:class:`Refused`: the run prints the reason and no result.
 
 With ``--trace 0`` the result holds the cell's end-to-end metrics, with
 ``--trace 1`` its per-layer metrics, read from a profiled window run after
@@ -22,6 +25,7 @@ import argparse
 import importlib.util
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -31,6 +35,11 @@ from typing import Callable, Optional
 import torch
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "seganygaussians_tpu")
+NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")
+
+
+class Refused(Exception):
+    """The cell's configuration or mix asks for what its runner cannot run."""
 
 
 class Cell:
@@ -116,6 +125,17 @@ def metrics_of(bench: dict, cell: str, trace: bool) -> list[dict]:
     return [m for m in bench["per_layer"] if applies(m)]
 
 
+def runner_of(root: Path, kind: str, runners: dict[str, Callable]) -> Callable:
+    """The runner of a mix's kind: a general one, else
+    ``perfbench/runners/<kind>.py``'s ``run``."""
+    if kind in runners:
+        return runners[kind]
+    path = root / "perfbench" / "runners" / f"{kind}.py"
+    if not NAME.fullmatch(kind) or not path.is_file():
+        raise Refused(f"no runner for the kind {kind!r}: neither a general one nor {path}")
+    return load_file_module(path).run
+
+
 def metric_file(root: Path, name: str) -> Path:
     """The reader of a per-layer metric: its own file, else its quantity's."""
     own = root / "perfbench" / "metrics" / f"{name}.py"
@@ -177,8 +197,11 @@ def main(argv, root, started: float, device: Optional[torch.device] = None,
         print(f"perfbench: cannot import the program: {exc}", file=sys.stderr)
         return 2
     cell = Cell(root, bench, workload, args, device, started)
-    runners = runners or cells.KINDS
-    out: Outcome = runners[cell.mix["kind"]](cell)
+    try:
+        out: Outcome = runner_of(root, cell.mix["kind"], runners or cells.KINDS)(cell)
+    except Refused as exc:
+        print(f"perfbench: {cell.name} refused: {exc}", file=sys.stderr)
+        return 2
     cell.log("reference done")
 
     found = forbidden_modules()

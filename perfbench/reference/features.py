@@ -1,5 +1,6 @@
 """Plain PyTorch reference of SAGA's affinity-feature layer (Cen et al.,
-"Segment Any 3D Gaussians", 2023): K-neighbour smoothing, the scale gate,
+"Segment Any 3D Gaussians", 2023): K-neighbour and multi-resolution
+smoothing, the scale gate,
 click similarity, ``segment3d`` and the contrastive loss of one training
 step, with the quantile transform of the mask scales.
 
@@ -37,6 +38,37 @@ def smooth(features, smooth_map, cols=None):
     return torch.mean(normed[nbrs], dim=1)
 
 
+def smooth_levels(features, maps):
+    """SAGA's multi-resolution smoothing (``smooth_type="multi_res"``): each
+    level takes a random subsample of the points and maps every point to its
+    K_i nearest subsampled points; the level's value is the mean of the
+    L2-normalised features over that map, and the levels are summed.
+
+    Departures from that description: the maps are given (the program builds
+    them once, at set-up, and ``map_checks`` holds them to an exact kNN by
+    themselves), so the subsamples are the program's draws; the level means
+    are summed unweighted (the trainer passes no per-point level weights);
+    the normalisation is the program's ``x / max(|x|, 1e-9)``
+    (:func:`normalize`)."""
+    normed = normalize(features)
+    out = torch.zeros_like(normed)
+    for nbrs in maps:
+        out = out + torch.mean(normed[nbrs], dim=1)
+    return out
+
+
+def smoothing(smooth_type: str, features, maps, cols=None):
+    """The configuration's smoothing over ``maps``: ``traditional`` over the
+    one K-neighbour map (its columns ``cols``, or all), ``multi_res`` over
+    the level maps."""
+    if smooth_type == "traditional":
+        (smooth_map,) = maps
+        return smooth(features, smooth_map, cols)
+    if smooth_type == "multi_res":
+        return smooth_levels(features, maps)
+    raise ValueError(f"no reference for smooth_type {smooth_type!r}")
+
+
 def gates(w, b, scales):
     """The scale gate sigmoid(s·w + b), (S, D) for S scales."""
     return torch.sigmoid(scales[:, None] * w[0][None, :] + b[None, :])
@@ -69,20 +101,27 @@ def segment3d(smoothed, w, b, scale, prompts, ar: Arith, threshold=0.75):
 # -- the smoothing's neighbour map, exactly, for a sample of rows -----------
 
 
-def nearest(xyz, rows, k: int, ar: Arith, block: int = 64, margin: int = 16):
+def nearest(xyz, rows, k: int, ar: Arith, block: int = 64, margin: int = 16, source=None):
     """The k nearest other points of each of ``rows``, nearest first:
     (indices (R, k), squared distances (R, k)).  Candidates come from
     |x|² + |y|² − 2 x·y, a matrix product as ``torch.cdist`` forms it; the
-    k + ``margin`` best of them are ranked again by their differences."""
+    k + ``margin`` best of them are ranked again by their differences.  With
+    ``source`` (indices into ``xyz``), the k nearest points of ``source``
+    instead, the row itself among them where it is one."""
     sq = ar.einsum("nc,nc->n", xyz, xyz)
+    pts, sq_pts = (xyz, sq) if source is None else (xyz[source], sq[source])
+    m = min(k + margin, pts.shape[0])
     idx, d2 = [], []
     for r0 in range(0, rows.numel(), block):
         r = rows[r0:r0 + block]
         q = xyz[r]
-        far = sq[r][:, None] + sq[None, :] - 2.0 * ar.mm(q, xyz.T)
-        far[torch.arange(r.numel(), device=xyz.device), r] = float("inf")  # not itself
-        cand = torch.topk(far, k + margin, dim=1, largest=False).indices
+        far = sq[r][:, None] + sq_pts[None, :] - 2.0 * ar.mm(q, pts.T)
+        if source is None:
+            far[torch.arange(r.numel(), device=xyz.device), r] = float("inf")  # not itself
+        cand = torch.topk(far, m, dim=1, largest=False).indices
         del far
+        if source is not None:
+            cand = source[cand]
         diff = xyz[cand] - q[:, None, :]
         best, col = torch.topk(ar.einsum("rmc,rmc->rm", diff, diff), k, dim=1, largest=False)
         idx.append(torch.gather(cand, 1, col))
@@ -90,14 +129,17 @@ def nearest(xyz, rows, k: int, ar: Arith, block: int = 64, margin: int = 16):
     return torch.cat(idx), torch.cat(d2)
 
 
-def neighbour_misses(xyz, rows, nbrs, kth_d2) -> float:
+def neighbour_misses(xyz, rows, nbrs, kth_d2, itself: bool = False) -> float:
     """Share of the k entries of each row of ``nbrs`` (R, k), the neighbours
     given for ``rows``, that are not among its k nearest other points: farther
     than the k-th nearest's squared distance ``kth_d2`` (R,) beyond a float32
-    rounding, the row itself, or a repeat within the row.  IEEE float32."""
+    rounding, the row itself (unless ``itself``: a point among the candidates
+    is its own nearest), or a repeat within the row.  IEEE float32."""
     diff = xyz[nbrs] - xyz[rows][:, None, :]
     d2 = torch.sum(diff * diff, dim=-1)
-    valid = (d2 <= kth_d2[:, None] * (1 + 1e-6)) & (nbrs != rows[:, None])
+    valid = d2 <= kth_d2[:, None] * (1 + 1e-6)
+    if not itself:
+        valid = valid & (nbrs != rows[:, None])
     srt = torch.sort(torch.where(valid, nbrs, torch.full_like(nbrs, -1)), dim=1).values
     first = torch.ones_like(valid)
     first[:, 1:] = srt[:, 1:] != srt[:, :-1]
@@ -162,15 +204,17 @@ class Draws(NamedTuple):
     cols: Optional[torch.Tensor]
 
 
-def draw(g: torch.Generator, m: Masks, rays: int, k: int, dropout: float) -> Draws:
-    """One step's random numbers, in the trainer's order."""
+def draw(g: torch.Generator, m: Masks, rays: int, k: int, dropout: float,
+         smooth_type: str) -> Draws:
+    """One step's random numbers, in the trainer's order: the dropout's
+    columns only under ``traditional`` smoothing."""
     def rand(*shape):
         return torch.rand(*shape, generator=g, device=g.device)
 
     n = m.n.clamp_min(1)
     rand_idx = torch.minimum((rand(NUM_SAMPLED_SCALES) * n).long(), n - 1)
     cols = None
-    if 0.0 < dropout < 1.0:
+    if smooth_type == "traditional" and 0.0 < dropout < 1.0:
         cols = torch.randperm(k, generator=g, device=g.device)[: int(k * dropout)]
     covered = torch.sum(m.masks.reshape(m.masks.shape[0], -1), dim=0) > 0
     score = rand(covered.shape[0]) - (~covered) * 1e9
@@ -255,16 +299,17 @@ def contrastive_loss(fmap, w, b, d: Draws, q_scales, gt, ppw, ar: Arith, rfn=1.0
             + rfn * rfn_reg)
 
 
-def contrastive_grads(features, w, b, smooth_map, geom: dict, cam: rr.Camera, m: Masks,
-                      d: Draws, upper, quantiles, ar: Arith):
-    """(loss, d features, d w, d b) of one step."""
+def contrastive_grads(features, w, b, smooth_type: str, maps, geom: dict, cam: rr.Camera,
+                      m: Masks, d: Draws, upper, quantiles, ar: Arith):
+    """(loss, d features, d w, d b) of one step, smoothed as ``smooth_type``
+    over ``maps`` (:func:`smoothing`)."""
     with torch.no_grad():
         q_scales, gt = scales_and_gt(d, m, upper, quantiles, ar)
         ppw = pixel_weights(m, d.ray_idx, ar)
     pf = features.detach().requires_grad_(True)
     lw, lb = w.detach().requires_grad_(True), b.detach().requires_grad_(True)
     with torch.enable_grad():
-        colors = safe_normalize(smooth(pf, smooth_map, d.cols))
+        colors = safe_normalize(smoothing(smooth_type, pf, maps, d.cols))
         frame, (bins, inputs, bg) = feature_map(geom, colors, cam, ar)
         fmap = frame.image.detach().requires_grad_(True)
         loss = contrastive_loss(fmap, lw, lb, d, q_scales, gt, ppw, ar)

@@ -107,10 +107,12 @@ def project(xyz, scales, quats, cam: Camera, ar: Arith, scale_modifier: float = 
     p_hom = ar.mm(hom, cam.full_proj)
     p_proj = p_hom[:, :3] / (p_hom[:, 3:4] + 1e-7)
     p_view = ar.mm(hom, cam.world_view)[:, :3]
-    # The depth that orders the blend is a sum of four products written out,
-    # as 3DGS's preprocess forms it, in every precision: Gaussians at nearly
-    # equal depths must not trade places on the rounding of a product.
-    depth = torch.sum(hom[:, :, None] * cam.world_view[None], dim=1)[:, 2]
+    # The depth that orders the blend is a sum of four products written out
+    # left to right, as 3DGS's preprocess forms it (transformPoint4x3), in
+    # every precision: Gaussians at nearly equal depths must not trade places
+    # on the order of a sum, which a reduction leaves to the device.
+    wv = cam.world_view
+    depth = ((xyz[:, 0] * wv[0, 2] + xyz[:, 1] * wv[1, 2]) + xyz[:, 2] * wv[2, 2]) + wv[3, 2]
     front = depth > 0.2
     tz = torch.where(front, depth, torch.ones_like(depth))
     fx = cam.width / (2.0 * cam.tan_fovx)

@@ -4,9 +4,9 @@ Each test drives the rest of a run (harness.main) on the CPU at a tiny size,
 with the look for a card skipped, once sound and once for each fault the
 cell can have: a step that returns its state unchanged and half of the
 batch left out (training cells); an answer altered where it is produced,
-and a ``roll_back`` that restores nothing (serving cells); a neighbour map
-with wrong neighbours (both feature cells).  Every cell runs on one chip, so there is no exchange
-between chips to leave out.  The control (the reference in TF32) is held
+a ``roll_back`` that restores nothing and a click's prompt altered (serving
+cells); a neighbour map with wrong neighbours (both feature cells).  Every
+cell runs on one chip, so there is no exchange between chips to leave out.  The control (the reference in TF32) is held
 apart from the reference in ``test_perfbench_reference.py`` at this size
 and on the card at the cells' size by ``perfbench/calibrate.py``.
 """
@@ -114,6 +114,24 @@ def test_segment(root, monkeypatch):
     with monkeypatch.context() as m:  # segment3d's cut is never undone
         m.setattr(SagaSession, "roll_back", lambda self: None)
         assert not _correct(root, "m360_garden.segment")
+
+
+def test_segment_altered_prompt(root, monkeypatch):
+    """A click's prompt altered where it is produced: ``mask_off`` holds the
+    mask to the reference's scores over its own renders of the clicks, the
+    last click before a ``segment3d`` too, which no similarity frame shows."""
+    from seganygaussians_torch.viewer.interactive import SagaSession
+
+    real = SagaSession.click
+
+    def altered_click(self, *args, **kw):  # the prompt's channels shifted by one
+        real(self, *args, **kw)
+        self.chosen_features[-1] = torch.roll(self.chosen_features[-1], 1)
+
+    with monkeypatch.context() as m:
+        m.setattr(SagaSession, "click", altered_click)
+        result = _run(root, "m360_garden.segment")
+    assert not result["correct"] and "mask_off" in _failed(result)
 
 
 @pytest.mark.parametrize("workload", ["m360_garden.segment", "m360_garden.feature_train"])

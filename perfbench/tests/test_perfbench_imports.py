@@ -135,6 +135,51 @@ def test_a_new_configuration_mix_and_metric_are_new_files_only(tmp_path):
                       and "__pycache__" not in p.parts}
 
 
+RUNNER = """from perfbench.harness import Outcome
+
+
+def run(cell):
+    out = Outcome()
+    cell.setup_done()
+    out.attempted = int(cell.mix["units"])
+    out.end_to_end["dummy_units_per_s"] = out.attempted / cell.seconds
+    out.checks = [("dummy_off", 0.0, 0.0)]
+    return out
+"""
+
+
+def test_a_new_kind_of_runner_is_a_new_file(tmp_path, capsys):
+    """A mix whose kind is not one of the general runners' is run by
+    ``perfbench/runners/<kind>.py``'s ``run``; a kind with no runner at all
+    gives no result."""
+    root = _tiny_copy(tmp_path)
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    (root / "perfbench/runners").mkdir()
+    (root / "perfbench/runners/dummy_count.py").write_text(RUNNER)
+    for kind in ("dummy_count", "dummy_missing"):
+        (root / f"perfbench/traffic/{kind}.json").write_text(json.dumps({"kind": kind,
+                                                                          "units": 5}))
+        bench["workloads"].append({"name": f"m360_garden.{kind}", "config": "m360_garden",
+                                   "traffic": kind, "chips": 1, "why": "test"})
+    bench["end_to_end"].append({"name": "dummy_units_per_s", "unit": "units/s",
+                                "better": "higher", "bound": 0.01, "source": "host_clock",
+                                "workloads": ["m360_garden.dummy_count"]})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    before = {p: p.read_bytes() for p in BENCH.rglob("*") if p.is_file()
+              and "__pycache__" not in p.parts}
+
+    rc, result = run_cell(root, "m360_garden.dummy_count", seconds=2.0)
+    assert rc == 0 and result["correct"] is True and result["attempted"] == 5
+    assert result["metrics"]["dummy_units_per_s"]["value"] == 2.5
+    assert set(result["metrics"]) == {"dummy_units_per_s", "setup_s"}
+    capsys.readouterr()
+    rc, result = run_cell(root, "m360_garden.dummy_missing", seconds=2.0)
+    assert rc != 0 and result is None
+    assert "no runner for the kind 'dummy_missing'" in capsys.readouterr().err
+    assert before == {p: p.read_bytes() for p in BENCH.rglob("*") if p.is_file()
+                      and "__pycache__" not in p.parts}
+
+
 def test_no_program_no_result(tmp_path):
     """A directory that holds only BENCHMARK.json and perfbench/ gives no
     result: the run cannot import the program."""

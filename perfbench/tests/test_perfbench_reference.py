@@ -133,7 +133,8 @@ def test_features_similarity_and_segment3d_match_the_port(inputs):
     assert float((mask != port_mask).float().mean()) < 1e-3
 
 
-def test_contrastive_step_matches_the_port(inputs):
+@pytest.mark.parametrize("smooth_type", ["traditional", "multi_res"])
+def test_contrastive_step_matches_the_port(inputs, smooth_type):
     cfg, params, cam = inputs
     smooth_map = fgm.build_smooth_map(params["xyz"], 16)
     feats = 1e-2 * torch.randn(N, 32, generator=torch.Generator().manual_seed(0))
@@ -145,20 +146,27 @@ def test_contrastive_step_matches_the_port(inputs):
                           fgm.optim.adam_init(fgm.FeatureParams(feats)))
     bundle = ct.build_mask_bundle(masks.numpy(), scales, masks.shape[0], device="cpu")
     all_scales = torch.tensor(np.concatenate([scales, scales * 1.3]))
+    nbrs = (smooth_map,)
+    if smooth_type == "multi_res":
+        nbrs = fgm.build_multi_res_maps(fs, torch.Generator().manual_seed(4))
+        assert [m.shape[1] for m in nbrs] == [4, 4, 16]
+        assert torch.allclose(rf.smooth_levels(feats, nbrs),
+                              fgm.multi_res_smoothed_features(fs, nbrs), atol=1e-6)
     consts = ct.ContrastiveConsts(all_scales.max(),
-                                  ct.fit_quantile_transform(all_scales, output="uniform"))
-    hyper = ct.ContrastiveHyper(num_sampled_rays=64, debug_grads=True)
+                                  ct.fit_quantile_transform(all_scales, output="uniform"),
+                                  nbrs if smooth_type == "multi_res" else ())
+    hyper = ct.ContrastiveHyper(num_sampled_rays=64, debug_grads=True, smooth_type=smooth_type)
     gp = ScaleGateParams(gate["w"], gate["b"])
     g_port = torch.Generator().manual_seed(11)
     _, _, _, aux = ct.contrastive_step(fs, gp, fgm.optim.adam_init(gp), port_camera(cam), bundle,
                                        consts, hyper, RasterConfig(capacity=1 << 16),
                                        generator=g_port)
     m = rf.sorted_masks(masks, torch.tensor(scales))
-    d = rf.draw(torch.Generator().manual_seed(11), m, 64, 16, 0.5)
+    d = rf.draw(torch.Generator().manual_seed(11), m, 64, 16, 0.5, smooth_type)
     geom = {"xyz": params["xyz"], "scales": torch.exp(params["scaling"]),
             "quats": torch.nn.functional.normalize(params["rotation"], dim=-1),
             "opacity": torch.sigmoid(params["opacity"][:, 0])}
-    loss, gf, gw, gb = rf.contrastive_grads(feats, gate["w"], gate["b"], smooth_map, geom,
+    loss, gf, gw, gb = rf.contrastive_grads(feats, gate["w"], gate["b"], smooth_type, nbrs, geom,
                                             rr.camera_on(cam, "cpu"), m, d, all_scales.max(),
                                             rf.fit_quantiles(all_scales), Arith())
     assert abs(float(aux["loss"]) - loss) < 1e-5 * abs(loss)
@@ -192,3 +200,46 @@ def test_exact_neighbours_and_the_port_s_map(inputs):
     bad[:, 1] = bad[:, 0]
     bad[:, 2] = rows
     assert abs(rf.neighbour_misses(xyz, rows, bad, d2[:, -1]) - 2 / 15) < 1e-9
+
+
+def test_exact_neighbours_and_the_port_s_level_maps(inputs):
+    """Each multi-resolution level among its subsample, the points its map
+    holds: the reference's kNN there is the brute-force one with the point
+    itself first; the port's maps miss little of it and each holds every
+    point of its subsample in that point's own row; a column taken from
+    another row misses about one entry in K, a row without its point is a
+    map fault."""
+    from perfbench import cells
+    _, params, _ = inputs
+    xyz = params["xyz"]
+    state = fgm.FeatureState(fgm.FrozenGeometry(xyz, None, None, None,
+                                                torch.ones(N, dtype=torch.bool)), None, None, None)
+    maps = fgm.build_multi_res_maps(state, torch.Generator().manual_seed(4))
+
+    def faults(maps):
+        return cells.map_faults(cells.Smoothing("multi_res", tuple(
+            cells.Level(m, False, m.shape[1]) for m in maps), len(maps)))
+
+    assert faults(maps) == 0.0
+    rows = torch.arange(0, N, 7)
+    for m, rate in zip(maps, (0.1, 0.5, 1.0)):
+        k = m.shape[1]
+        source = cells.level_source(m)
+        assert abs(source.numel() / N - rate) < 0.05
+        idx, d2 = rf.nearest(xyz, rows, k, Arith(False), block=32, source=source)
+        brute = torch.cdist(xyz[rows].double(), xyz[source].double()) ** 2
+        want = torch.topk(brute, k, dim=1, largest=False)
+        assert torch.allclose(d2.double(), want.values, rtol=1e-5, atol=1e-9)
+        assert rf.neighbour_misses(xyz, rows, idx, d2[:, -1], itself=True) == 0.0
+        assert rf.neighbour_misses(xyz, rows, m[rows], d2[:, -1], itself=True) < 0.01
+        altered = m.clone()
+        altered[:, k // 2] = torch.roll(m[:, k // 2], 1)
+        assert rf.neighbour_misses(xyz, rows, altered[rows], d2[:, -1], itself=True) > 0.5 / k
+    # A subsampled point whose own row lacks it; an index out of range.
+    own = maps[0].clone()
+    point = int(cells.level_source(own)[0])
+    own[point] = own[(point + 1) % N]
+    assert faults((own,) + maps[1:]) > 0
+    out = maps[1].clone()
+    out[3, 1] = N
+    assert abs(faults(maps[:1] + (out,) + maps[2:]) - 1 / N) < 1e-9

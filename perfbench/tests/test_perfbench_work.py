@@ -72,3 +72,16 @@ def test_count_is_the_same_whichever_plan_the_port_takes(plan):
     # whichever plan it takes.
     assert counted.included == int(out.n_contrib.sum())
     assert float((out.color - frame.image).abs().max()) < 1e-4
+
+
+def test_feature_step_counts_follow_the_smoothing():
+    """``traditional`` (one level of ⌊K·dropout⌋ columns, no level sums) gives
+    the counts the step had before the smoothing became a list of levels;
+    ``multi_res`` adds one smoothing a level and three level sums of N·d."""
+    f = blend.count(*two_tile_frame(), 32, 16, 32)
+    assert step.feature_train(5_800_000, [8], 0, 32, 1000, 10, f) == (20460206024.0, 7859231356.0)
+    assert step.feature_train(3000, [8], 0, 32, 64, 10, f) == (11361384.0, 10967676.0)
+    rest = step.feature_train(3000, [], 0, 32, 64, 10, f)
+    levels = [step.smoothing(3000, k, 32, True) for k in (4, 4, 16)]
+    assert step.feature_train(3000, [4, 4, 16], 3, 32, 64, 10, f) == (
+        rest[0] + sum(b for b, _ in levels), rest[1] + sum(o for _, o in levels) + 3 * 3000 * 32)

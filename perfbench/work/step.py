@@ -45,15 +45,19 @@ def smoothing(n: int, k: int, d: int, backward: bool) -> tuple[float, float]:
     return _add(fwd, (n * (k + 2) * d * F32, n * d * (k + 3)))
 
 
-def feature_train(n: int, k: int, d: int, rays: int, scales: int,
+def feature_train(n: int, cols: list[int], sums: int, d: int, rays: int, scales: int,
                   fwd: blend.Frame) -> tuple[float, float]:
-    """A contrastive step: smoothing and its backward, the geometry read,
-    the C = d blend forward and backward, the ray correlations (S, R, R) and
-    their gradient, Adam over the features."""
+    """A contrastive step: smoothing and its backward, once for each entry of
+    ``cols``, the neighbour columns a level averages over (traditional:
+    ``[⌊K·dropout⌋]``; multi-resolution: one entry a level), and ``sums``
+    additions of N·d that put the levels together (operations only: a fused
+    sum writes nothing more); the geometry read, the C = d blend forward and
+    backward, the ray correlations (S, R, R) and their gradient, Adam over
+    the features."""
     adam = (n * d * F32 * 7, n * d * 10)
     corr = (scales * rays * rays * F32 * 4, scales * rays * rays * d * 2 * 3)
-    return _add(smoothing(n, k, d, True), (n * GEOMETRY * F32, 0), adam, corr,
-                blend.forward(fwd), blend.backward(fwd))
+    return _add(*(smoothing(n, k, d, True) for k in cols), (0, sums * n * d),
+                (n * GEOMETRY * F32, 0), adam, corr, blend.forward(fwd), blend.backward(fwd))
 
 
 def feature_request(n: int, k: int, d: int, fwd: blend.Frame, similarity: bool):
