@@ -212,14 +212,21 @@ def multi_res_smoothed_features(
 ) -> torch.Tensor:
     """Sum over levels of (optionally per-point-weighted) K_i-neighbour means
     of the L2-normalised features; differentiable with respect to both
-    ``point_features`` and ``smooth_weights``."""
+    ``point_features`` and ``smooth_weights``.
+
+    Traced, each level's gather and mean is a span ``saga:smoothing.level<i>``
+    and counts its neighbour rows (N·K_i) in ``smoothing.rows.level<i>``,
+    their sum in ``smoothing.rows``."""
     with tracing.span("smoothing"):
         pf = state.point_features
         normed = pf / torch.linalg.norm(pf, dim=-1, keepdim=True).clamp_min(1e-9)
         out = torch.zeros_like(normed)
         for i, nbrs in enumerate(maps):
-            level = torch.mean(normed[nbrs], dim=1)
+            with tracing.span(f"smoothing.level{i}"):
+                level = torch.mean(normed[nbrs], dim=1)
+            tracing.count(f"smoothing.rows.level{i}", nbrs.numel())
             out = out + (level if smooth_weights is None else smooth_weights[:, i : i + 1] * level)
+        tracing.count("smoothing.rows", sum(nbrs.numel() for nbrs in maps))
         return out
 
 

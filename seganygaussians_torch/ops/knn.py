@@ -10,9 +10,12 @@ exact KNN, so that its output can be held to the JAX package's:
 1. sort points by a 30-bit Morton code of the (rotated) cloud;
 2. each sorted position looks at the ±W positions around it and keeps its
    ``keep`` nearest candidates (distances in the original frame);
-3. repeat under fixed rotations and merge the candidate sets, dropping
-   neighbours found by more than one pass;
-4. the k smallest merged distances give the neighbours (3 for the mean).
+3. repeat under fixed rotations, merging each pass's candidates into a
+   running top-``keep`` as soon as the pass is done (a neighbour that the
+   running list holds already is dropped), so no more than two passes'
+   lists are held at once; indices are int32 until the maps are returned;
+4. the merged list's k smallest distances give the neighbours (3 for the
+   mean).
 
 The rotation matmul is written out elementwise, so it stays full fp32 on the
 card whatever the TF32 settings are.
@@ -72,7 +75,8 @@ def _window_candidates(
     cand_idx: Optional[torch.Tensor] = None,
     sentinel: Optional[int] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One Morton pass → per-point ``keep`` best (d2, idx), original row order.
+    """One Morton pass → per-point ``keep`` best (d2 ascending, int32 idx),
+    original row order.
 
     Positions past either end of the sorted order, and rows whose
     ``cand_mask`` is False, are +inf with index ``sentinel`` (one past the
@@ -81,9 +85,11 @@ def _window_candidates(
     candidate row (:func:`knn_query_source` reports source-row ids from a
     combined query + source cloud).
 
-    The ±W window is streamed in groups of 8 shifts into a running sorted
-    top-``keep`` per point, so memory stays at (N, keep + 16) however wide the
-    window is; a per-pass top-``keep`` loses nothing of the global one."""
+    The sorted cloud is padded by ``window`` invalid rows at each end, so the
+    neighbour at every shift is a slice.  The ±W window is streamed in groups
+    of 8 shifts into a running sorted top-``keep`` per point, so memory stays
+    at (N, keep + 16) however wide the window is; a per-pass top-``keep``
+    loses nothing of the global one."""
     n = xyz.shape[0]
     device = xyz.device
     if cand_idx is None:
@@ -91,58 +97,76 @@ def _window_candidates(
     if sentinel is None:
         sentinel = n
     order = torch.sort(morton_codes(_rotate(xyz, rot)), stable=True).indices
+    w = window
     xyz_s = xyz[order]
-    idx_s0 = cand_idx[order].long()
-    mask_s = None if cand_mask is None else cand_mask[order]
-    pos = torch.arange(n, device=device)
-    inf = torch.full((n,), float("inf"), dtype=torch.float32, device=device)
-    junk = torch.full((n,), sentinel, dtype=torch.long, device=device)
+    xyz_p = torch.cat([xyz_s.new_zeros(w, 3), xyz_s, xyz_s.new_zeros(w, 3)])
+    off = torch.zeros(w, dtype=torch.bool, device=device)
+    live = torch.ones(n, dtype=torch.bool, device=device) if cand_mask is None else cand_mask[order]
+    valid_p = torch.cat([off, live, off])
+    junk = torch.full((w,), sentinel, dtype=torch.int32, device=device)
+    idx_p = torch.cat([junk, cand_idx[order].to(torch.int32), junk])
+    inf = torch.tensor(float("inf"), device=device)
 
-    d2_best = inf[:, None].expand(n, keep)
-    idx_best = junk[:, None].expand(n, keep)
+    d2_best = inf.expand(n, keep)
+    idx_best = torch.full((n, keep), sentinel, dtype=torch.int32, device=device)
     group = 8
-    for d0 in range(1, window + 1, group):
-        d2_rows, idx_rows = [d2_best], [idx_best]
-        for d in range(d0, min(d0 + group, window + 1)):
-            for s in (1, -1):
-                nb = torch.roll(xyz_s, -s * d, dims=0)
-                dist = torch.sum((xyz_s - nb) ** 2, dim=-1)
-                valid = (pos + s * d >= 0) & (pos + s * d < n)
-                if mask_s is not None:
-                    valid = valid & torch.roll(mask_s, -s * d)
-                d2_rows.append(torch.where(valid, dist, inf)[:, None])
-                idx_rows.append(torch.where(valid, torch.roll(idx_s0, -s * d), junk)[:, None])
-        d2_cat = torch.cat(d2_rows, dim=1)
-        idx_cat = torch.cat(idx_rows, dim=1)
+    for d0 in range(1, w + 1, group):
+        shifts = [s * d for d in range(d0, min(d0 + group, w + 1)) for s in (1, -1)]
+        d2_cat = torch.empty(n, keep + len(shifts), device=device)
+        idx_cat = torch.empty(n, keep + len(shifts), dtype=torch.int32, device=device)
+        d2_cat[:, :keep], idx_cat[:, :keep] = d2_best, idx_best
+        for c, sd in enumerate(shifts, start=keep):
+            nb = slice(w + sd, w + sd + n)
+            valid = valid_p[nb]
+            dist = torch.sum((xyz_s - xyz_p[nb]) ** 2, dim=-1)
+            d2_cat[:, c] = torch.where(valid, dist, inf)
+            idx_cat[:, c] = torch.where(valid, idx_p[nb], sentinel)
         # Stable, so ties keep the earlier (nearer-shift) candidate.
         d2_sorted, col = torch.sort(d2_cat, dim=1, stable=True)
-        d2_best = d2_sorted[:, :keep]
+        del d2_cat
+        d2_best = d2_sorted[:, :keep].contiguous()
         idx_best = torch.gather(idx_cat, 1, col[:, :keep])
+        del d2_sorted, col, idx_cat
     inv = torch.empty_like(order)
-    inv[order] = pos
+    inv[order] = torch.arange(n, device=device)
     return d2_best[inv], idx_best[inv]
+
+
+def _merge(d2_a, idx_a, d2_b, idx_b, sentinel: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``keep`` nearest of two candidate lists, each (N, keep) with
+    distinct real indices a row: (d2 ascending, int32 idx).
+
+    A candidate of ``b`` that ``a`` holds already goes: the same pair has the
+    same distance in every pass, since it is computed in the original frame.
+    Dropped and missing candidates are +inf with index ``sentinel``, so a
+    real index is held once at most and only with its distance.  The top
+    ``keep`` of a union of index-distinct lists is the top ``keep`` of their
+    tops, so merging pass by pass gives the all-passes merge's neighbours
+    (up to exact distance ties at the last place) in (N, 2·keep)."""
+    keep = d2_a.shape[1]
+    dup = (idx_b[:, :, None] == idx_a[:, None, :]).any(dim=-1)
+    d2 = torch.cat([d2_a, d2_b.masked_fill(dup, float("inf"))], dim=1)
+    idx = torch.cat([idx_a, idx_b.masked_fill(dup, sentinel)], dim=1)
+    del dup
+    # Stable, so ties keep the earlier pass's candidate.
+    d2_s, col = torch.sort(d2, dim=1, stable=True)
+    return d2_s[:, :keep].contiguous(), torch.gather(idx, 1, col[:, :keep])
 
 
 def _merged_candidates(xyz, window, num_passes, keep, cand_mask=None, cand_idx=None,
                        sentinel=None):
-    keep = min(keep, 2 * window)
-    d2s, idxs = zip(*[
-        _window_candidates(xyz, window, r, keep, cand_mask=cand_mask, cand_idx=cand_idx,
-                           sentinel=sentinel)
-        for r in _fixed_rotations(num_passes)
-    ])
-    d2 = torch.cat(d2s, dim=-1)  # (N, S·keep)
-    idx = torch.cat(idxs, dim=-1)
-    # Drop neighbours that several passes found: sort each row by index and
-    # mask repeats (the same pair always has the same distance).  Masked junk
-    # carries the sentinel index and +inf, so it only dedups against itself.
-    idx_s, order = torch.sort(idx, dim=-1, stable=True)
-    d2_s = torch.gather(d2, -1, order)
-    dup = torch.cat(
-        [torch.zeros_like(idx_s[:, :1], dtype=torch.bool), idx_s[:, 1:] == idx_s[:, :-1]],
-        dim=-1,
-    )
-    return torch.where(dup, torch.full_like(d2_s, float("inf")), d2_s), idx_s
+    """(N, keep) nearest candidates over ``num_passes`` rotated passes: (d2
+    ascending, int32 idx), missing ones +inf with index ``sentinel``.  Each
+    pass is merged into the running best as soon as it is done."""
+    if sentinel is None:
+        sentinel = xyz.shape[0]
+    d2 = idx = None
+    for r in _fixed_rotations(num_passes):
+        d2_p, idx_p = _window_candidates(xyz, window, r, keep, cand_mask=cand_mask,
+                                         cand_idx=cand_idx, sentinel=sentinel)
+        d2, idx = (d2_p, idx_p) if d2 is None else _merge(d2, idx, d2_p, idx_p, sentinel)
+        del d2_p, idx_p
+    return d2, idx
 
 
 def mean_sq_dist_to_3nn(
@@ -151,8 +175,7 @@ def mean_sq_dist_to_3nn(
     """Mean squared distance to the 3 nearest neighbours found (``distCUDA2``
     semantics; missing neighbours count as 0, as in the JAX package)."""
     d2, _ = _merged_candidates(xyz, window, num_passes, keep=3)
-    top3 = torch.topk(d2, 3, dim=-1, largest=False).values
-    return torch.mean(torch.where(torch.isfinite(top3), top3, torch.zeros_like(top3)), dim=-1)
+    return torch.mean(torch.where(torch.isfinite(d2), d2, torch.zeros_like(d2)), dim=-1)
 
 
 def knn_map(
@@ -166,12 +189,10 @@ def knn_map(
     if window is None:
         window = max(4 * k, 32)
     d2, idx = _merged_candidates(xyz, window, num_passes, keep=k)
-    d2_k, col = torch.topk(d2, k, dim=-1, largest=False, sorted=True)
-    nbrs = torch.gather(idx, -1, col)
     # Junk slots (fewer than k real candidates in every window) fall back to
     # self: harmless for smoothing means, and in bounds, unlike the sentinel.
     self_idx = torch.arange(xyz.shape[0], device=xyz.device)[:, None]
-    return torch.where(torch.isfinite(d2_k), nbrs, self_idx)
+    return torch.where(torch.isfinite(d2), idx.long(), self_idx)
 
 
 def default_query_source_window(k: int, nq: int, ns: int) -> int:
@@ -205,15 +226,14 @@ def knn_query_source(
     window = min(window, max(nq + ns - 1, 1))
     device = query.device
     both = torch.cat([query, source], dim=0)
-    rows = torch.arange(nq + ns, device=device)
+    rows = torch.arange(nq + ns, device=device, dtype=torch.int32)
     is_source = rows >= nq
     # Report source-row ids for source rows; query rows are never candidates.
-    rep_idx = torch.where(is_source, rows - nq, torch.full_like(rows, ns))
+    rep_idx = torch.where(is_source, rows - nq, ns)
     d2, idx = _merged_candidates(both, window, num_passes, keep=k,
                                  cand_mask=is_source, cand_idx=rep_idx, sentinel=ns)
-    d2_k, col = torch.topk(d2, k, dim=-1, largest=False, sorted=True)
-    nbrs = torch.gather(idx, -1, col)[:nq]
-    finite = torch.isfinite(d2_k)[:nq]
+    nbrs = idx[:nq].long()
+    finite = torch.isfinite(d2[:nq])
     # Junk slots fall back to the query's best real source neighbour
     # (column 0); a query that found no source at all gets row 0.
     best = torch.where(finite[:, :1], nbrs[:, :1], torch.zeros_like(nbrs[:, :1]))

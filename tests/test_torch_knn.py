@@ -139,3 +139,153 @@ def test_knn_query_source_default_window_keeps_recall_at_low_rates(rate):
     assert old_recall < recall
     if rate == 0.03:
         assert old_recall < 0.95 and old_fallbacks > 0.0, (old_recall, old_fallbacks)
+
+
+# --------------------------------------------------------------------------
+# The running merge against the all-passes merge it replaced
+# --------------------------------------------------------------------------
+
+
+def _oracle_window_candidates(xyz, window, rot, keep, cand_mask=None, cand_idx=None,
+                              sentinel=None):
+    """One Morton pass as the all-passes merge ran it: rolled neighbours,
+    int64 indices, a running sorted top-``keep`` over groups of 8 shifts."""
+    n = xyz.shape[0]
+    if cand_idx is None:
+        cand_idx = torch.arange(n)
+    if sentinel is None:
+        sentinel = n
+    order = torch.sort(tknn.morton_codes(tknn._rotate(xyz, rot)), stable=True).indices
+    xyz_s = xyz[order]
+    idx_s0 = cand_idx[order].long()
+    mask_s = None if cand_mask is None else cand_mask[order]
+    pos = torch.arange(n)
+    inf = torch.full((n,), float("inf"))
+    junk = torch.full((n,), sentinel, dtype=torch.long)
+    d2_best = inf[:, None].expand(n, keep)
+    idx_best = junk[:, None].expand(n, keep)
+    for d0 in range(1, window + 1, 8):
+        d2_rows, idx_rows = [d2_best], [idx_best]
+        for d in range(d0, min(d0 + 8, window + 1)):
+            for s in (1, -1):
+                nb = torch.roll(xyz_s, -s * d, dims=0)
+                dist = torch.sum((xyz_s - nb) ** 2, dim=-1)
+                valid = (pos + s * d >= 0) & (pos + s * d < n)
+                if mask_s is not None:
+                    valid = valid & torch.roll(mask_s, -s * d)
+                d2_rows.append(torch.where(valid, dist, inf)[:, None])
+                idx_rows.append(torch.where(valid, torch.roll(idx_s0, -s * d), junk)[:, None])
+        d2_sorted, col = torch.sort(torch.cat(d2_rows, 1), dim=1, stable=True)
+        d2_best = d2_sorted[:, :keep]
+        idx_best = torch.gather(torch.cat(idx_rows, 1), 1, col[:, :keep])
+    inv = torch.empty_like(order)
+    inv[order] = pos
+    return d2_best[inv], idx_best[inv]
+
+
+def _oracle_merged(xyz, window, num_passes, keep, **kw):
+    """Every pass's list kept, concatenated to (N, S·keep), sorted by index,
+    repeats masked +inf; then the k smallest.  Also the count of repeats."""
+    keep = min(keep, 2 * window)
+    d2s, idxs = zip(*[_oracle_window_candidates(xyz, window, r, keep, **kw)
+                      for r in tknn._fixed_rotations(num_passes)])
+    d2, idx = torch.cat(d2s, -1), torch.cat(idxs, -1)
+    idx_s, order = torch.sort(idx, dim=-1, stable=True)
+    d2_s = torch.gather(d2, -1, order)
+    dup = torch.cat([torch.zeros_like(idx_s[:, :1], dtype=torch.bool),
+                     idx_s[:, 1:] == idx_s[:, :-1]], dim=-1)
+    real_dup = dup & torch.isfinite(d2_s)
+    return torch.where(dup, torch.full_like(d2_s, float("inf")), d2_s), idx_s, int(real_dup.sum())
+
+
+def _oracle_top(xyz, window, num_passes, k, **kw):
+    d2, idx, repeats = _oracle_merged(xyz, window, num_passes, k, **kw)
+    d2_k, col = torch.topk(d2, k, dim=-1, largest=False, sorted=True)
+    return d2_k, torch.gather(idx, -1, col), repeats
+
+
+def _assert_same_lists(d2, idx, d2_want, idx_want):
+    """The same distances bitwise, a row's indices equal below its k-th
+    distance (an exact tie there may pick another index), and finite entries
+    alike."""
+    assert torch.equal(d2, d2_want)
+    for r in range(d2.shape[0]):
+        below = d2[r] < d2[r, -1]
+        assert set(idx[r][below].tolist()) == set(idx_want[r][below].tolist()), r
+        fin = torch.isfinite(d2[r])
+        assert len(set(idx[r][fin].tolist())) == int(fin.sum()), r  # no repeats
+
+
+@pytest.mark.parametrize("k", [15, 4])
+def test_running_merge_gives_the_all_passes_merge_knn_map(k):
+    x = torch.from_numpy(clustered_cloud())
+    window = max(4 * k, 32)
+    d2, idx = tknn._merged_candidates(x, window, 7, keep=k)
+    d2_want, idx_want, repeats = _oracle_top(x, window, 7, k)
+    assert repeats > 0  # neighbours that several passes found
+    assert idx.dtype == torch.int32
+    _assert_same_lists(d2, idx, d2_want, idx_want)
+    want = torch.where(torch.isfinite(d2_want), idx_want, torch.arange(len(x))[:, None])
+    got = tknn.knn_map(x, k)
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("rate,window", [(0.1, None), (0.5, None), (0.02, 8)])
+def test_running_merge_gives_the_all_passes_merge_query_source(rate, window):
+    """With query rows masked out of the candidates, the sentinel one past the
+    source rows, and at a sparse rate with a narrow window some rows short of
+    k real candidates (junk slots and their fallback)."""
+    xyz = clustered_cloud()
+    pm, _ = subsample(xyz, rate)
+    q, s = torch.from_numpy(xyz), torch.from_numpy(xyz[pm])
+    nq, ns, k = len(q), len(s), 4
+    w = tknn.default_query_source_window(k, nq, ns) if window is None else window
+    both = torch.cat([q, s])
+    rows = torch.arange(nq + ns)
+    mask = rows >= nq
+    rep = torch.where(mask, rows - nq, torch.full_like(rows, ns))
+    d2, idx = tknn._merged_candidates(both, w, 7, keep=k, cand_mask=mask, cand_idx=rep,
+                                      sentinel=ns)
+    d2_want, idx_want, repeats = _oracle_top(both, w, 7, k, cand_mask=mask, cand_idx=rep,
+                                             sentinel=ns)
+    assert repeats > 0
+    _assert_same_lists(d2, idx, d2_want, idx_want)
+    short = ~torch.isfinite(d2_want[:nq]).all(-1)
+    if window is not None:
+        assert short.any()  # junk slots reach the fallback
+    assert (idx[~torch.isfinite(d2)] == ns).all()  # junk carries the sentinel
+    nbrs, fin = idx_want[:nq], torch.isfinite(d2_want[:nq])
+    best = torch.where(fin[:, :1], nbrs[:, :1], torch.zeros_like(nbrs[:, :1]))
+    want = torch.where(fin, nbrs, best)
+    got = tknn.knn_query_source(q, s, k, window=window)
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("kind", ["gaussian", "clustered"])
+def test_running_merge_gives_the_all_passes_mean_sq_dist_bitwise(kind):
+    x = torch.from_numpy(clouds()[kind])
+    top3, _, _ = _oracle_top(x, 16, 3, 3)
+    want = torch.mean(torch.where(torch.isfinite(top3), top3, torch.zeros_like(top3)), dim=-1)
+    assert torch.equal(tknn.mean_sq_dist_to_3nn(x), want)
+
+
+def test_merge_holds_two_lists_of_keep_at_most(monkeypatch):
+    """Each pass goes into the running list as soon as it is done: the merge
+    sees two (N, keep) lists, never more columns, once a pass after the
+    first."""
+    seen, merge = [], tknn._merge
+
+    def watched(d2_a, idx_a, d2_b, idx_b, sentinel):
+        seen.append((tuple(d2_a.shape), tuple(idx_a.shape), tuple(d2_b.shape),
+                     tuple(idx_b.shape)))
+        out = merge(d2_a, idx_a, d2_b, idx_b, sentinel)
+        seen.append((tuple(out[0].shape), tuple(out[1].shape)))
+        return out
+
+    monkeypatch.setattr(tknn, "_merge", watched)
+    x = torch.from_numpy(clustered_cloud())
+    n, k = len(x), 15
+    tknn.knn_map(x, k)
+    assert seen == [((n, k),) * 4, ((n, k),) * 2] * 6  # 7 passes, 6 merges

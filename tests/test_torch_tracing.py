@@ -5,8 +5,9 @@ Each test runs a tiny scene step, contrastive step or session request.  Off
 adds no autograd node.  On, every op launched from a function of a module in
 ``perfbench/layers.json`` sits under a ``saga:<layer>`` span of that module's
 layer (the unit spans are the ``entry`` layer's), unit spans carry their ids,
-the backward's marks fire once a step, image first, and the slot counters
-are the binning plan's.
+the backward's marks fire once a step, image first, the slot counters are
+the binning plan's, and a multi-resolution step records one span and one row
+count a level.
 """
 
 import json
@@ -76,7 +77,7 @@ def scene_trainer_of(state):
                                       spatial_lr_scale=1.0, sh_degree=1, config=CONFIG, seed=3)
 
 
-def contrastive_trainer_of(state):
+def contrastive_trainer_of(state, smooth_type="traditional"):
     rng = np.random.default_rng(2)
     cams = []
     for i in range(2):
@@ -84,7 +85,8 @@ def contrastive_trainer_of(state):
         masks[0, :, : W // 2] = masks[1, : H // 2] = masks[2, 4:12, 4:12] = True
         cams.append(SimpleNamespace(params=camera(), sam_masks=masks,
                                     mask_scales=rng.uniform(0.1, 1.0, 3).astype(np.float32)))
-    hyper = ContrastiveHyper(num_sampled_rays=16, smooth_k=4, smooth_dropout=0.5)
+    hyper = ContrastiveHyper(num_sampled_rays=16, smooth_k=4, smooth_dropout=0.5,
+                             smooth_type=smooth_type)
     return ContrastiveTrainer(feature_state(state), gate(), cams, hyper=hyper, config=CONFIG,
                               seed=5)
 
@@ -286,6 +288,27 @@ def test_backward_edges_fire_once_a_step_image_first(unit):
     for e in s["segments"].values():
         assert e["count"] == 3 and e["host_ms"] > 0 and e["device_ms"] is None
     assert s["spans"]["backward"]["count"] == 3
+
+
+@pytest.mark.parametrize("smooth_type", ["multi_res", "traditional"])
+def test_multi_res_levels_have_a_span_and_a_row_count_each(smooth_type):
+    """A traced multi-resolution step records one span a level round its
+    gather and mean, and counts each level's N·K_i neighbour rows and their
+    sum; the K-neighbour smoothing records none of them."""
+    tr = contrastive_trainer_of(scene_state(), smooth_type)
+    _, s = profiled(lambda: tr.run(iterations=1))
+    levels = {k: v["count"] for k, v in s["spans"].items() if k.startswith("smoothing.")}
+    rows = {k: v for k, v in s["counters"].items() if k.startswith("smoothing.")}
+    if smooth_type == "traditional":
+        assert levels == {} and rows == {}
+        return
+    n = tr.feat_state.point_features.shape[0]
+    assert [m.shape for m in tr.consts.multi_res_maps] == [(n, 4), (n, 4), (n, 16)]
+    assert levels == {"smoothing.level0": 1, "smoothing.level1": 1, "smoothing.level2": 1}
+    assert rows == {"smoothing.rows.level0": n * 4, "smoothing.rows.level1": n * 4,
+                    "smoothing.rows.level2": n * 16, "smoothing.rows": n * (4 + 4 + 16)}
+    assert s["spans"]["smoothing"]["host_ms"] >= sum(
+        s["spans"][f"smoothing.level{i}"]["host_ms"] for i in range(3))
 
 
 def test_slot_counters_are_the_plans(monkeypatch):
