@@ -4,11 +4,11 @@ one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Builds the forward-blend, backward-blend, scan-variants and preprocess
-kernels from ``seganygaussians_torch/csrc`` (one ``nvcc`` a source, started
-together) and runs fifteen phases, each of which raises on failure (phases
-10, 12, 13 and 14 run after phase 8, on its feature field and phase 2's
-scene, and before phase 9; phase 15 runs last):
+Builds the forward-blend, backward-blend, scan-variants, preprocess and
+smoothing kernels from ``seganygaussians_torch/csrc`` (one ``nvcc`` a
+source, started together) and runs sixteen phases, each of which raises on
+failure (phases 10, 12, 13 and 14 run after phase 8, on its feature field
+and phase 2's scene, and before phase 9; phases 15 and 16 run last):
 
 1. Kernel against its plain version (``ops/blend.py``) on the same CUDA
    inputs: ~2000 Gaussians at 256×192, C ∈ {3, 4, 5, 32}, the padded counts
@@ -70,7 +70,9 @@ scene, and before phase 9; phase 15 runs last):
    ``blend_backward_plain`` on 64 tiles with the step's own cotangent (at
    unit maximum, and clipped at its 0.99 quantile); 10
    steps: ms/step, a stage split, peak memory, 10 forward and 10 backward
-   launches at C = 32, a fixed-draw loss that is finite and lower at the end.
+   launches at C = 32, 10 and 10 of the smoothing kernels with the
+   trainer's reverse maps (none built at a step), a fixed-draw loss that is
+   finite and lower at the end.
 9. The contrastive CLI chain on a COPY of ``examples/synth_scene`` with phase
    6's saved model: ``cli/get_scale.py`` (48 finite positive sidecars; one
    of its RGB + depth + mask frames, C = 5 at 200×150, through the forward
@@ -114,7 +116,8 @@ scene, and before phase 9; phase 15 runs last):
    web GUI over loopback (PNG included); one SIBR request through
    ``NetworkGUI`` and ``render_view``; peak memory.  It raises unless the
    forward launches by instance equal the renders issued, the clicked
-   pixel's feature is within 1e-4 of the plain blend on its tile,
+   pixel's feature is within 1e-4 of the plain blend on its tile, the
+   smoothing forward's launches equal the smoothing calls (no backward),
    ``segment3d``'s mask equals ``queries.segment3d``'s on the card and,
    more than 1e-4 from the threshold, on the host (the threshold sits at
    the 99th percentile, so the count it selects is fixed), ``roll_back``
@@ -161,12 +164,27 @@ scene, and before phase 9; phase 15 runs last):
    (forward, backward), each window counted from 0: 1 and 1 over a
    ``train_step``, 1 and 0 over a feature render's gradient and over a
    no-grad ``render.render``.
+16. The smoothing kernel pair (``csrc/smooth.cu``) at the main path's
+   shapes: 5,800,000 seeded points in a cube with 32-dim features, every
+   thousandth row all zero; the port's K = 16 map (``build_smooth_map``)
+   over 8 drawn columns (a training step's) and over all 16 (a session's),
+   and SAGA's three levels (``build_multi_res_maps``, K 4/4/16) added into
+   one output.  Each case's forward against the plain path's gather-mean
+   and its gradient against autograd through it, over the all-zero rows and
+   the others apart (1e-6 and 1e-5 of each column's largest value), and a
+   witness that the comparison can fail: the plain path over one column
+   fewer must read 100 times the tolerance.  Launches from 0 (one a map
+   each way); device ms of each kernel (and of each level's launch), its
+   byte bound (``smooth_bytes``) and the plain path's time; the reverse
+   maps' build time, bytes and largest in-degree.
 
 The second-to-last line of output is a JSON object describing the kernels
 (times, bound, and each instance's launches over its main-path window:
 phases 2 and 12 for the forward, 5 for the backward, 13 for C = 64, with
 the launches on phases 13-14's paths beside them; the script fails if one
-is 0; the preprocess kernels' entries carry phase 15's windows); the last is
+is 0; the preprocess kernels' entries carry phase 15's windows, the
+smoothing kernels' phase 8's and 12's (the K-neighbour normalisation's
+launches there) and phase 16's); the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without CUDA, or without the package beside this file, it exits non-zero
 before printing a result.
@@ -238,6 +256,11 @@ PREP_GEOMETRY = ("means3d", "scales", "rotations", "shs")
 # but for at most 1e-4 of the Gaussians one tile apart (a float within an ulp
 # of a tile edge); gradients within 1e-5, with the same structural zeros.
 TOL_PREP_FWD, TOL_PREP_BWD, MAX_PREP_OFF = 1e-6, 1e-5, 1e-4
+# Phase 16: the smoothing kernels against the plain path and autograd, over
+# the all-zero feature rows and the others apart, each within this share of
+# its column's largest value (float32 sums in another order); the plain path
+# with one column fewer must read at least WITNESS times the tolerance.
+TOL_SMOOTH_FWD, TOL_SMOOTH_BWD, WITNESS = 1e-6, 1e-5, 100
 
 
 class SmokeFailure(RuntimeError):
@@ -1041,6 +1064,21 @@ class Spy:
         return sum(a.elapsed_time(b) for a, b in self.events)
 
 
+class CallCount:
+    """Count the calls of ``module.name`` until :meth:`restore`."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.fn, self.calls = module, name, getattr(module, name), 0
+        setattr(module, name, self)
+
+    def __call__(self, *args, **kwargs):
+        self.calls += 1
+        return self.fn(*args, **kwargs)
+
+    def restore(self) -> None:
+        setattr(self.module, self.name, self.fn)
+
+
 def train_stages(state, cam, gt, bg, hyper, config, extent) -> dict[str, float]:
     """Device ms of each stage of one train_step (the split of
     ``scene_trainer.train_step``), with CUDA events between the stages and
@@ -1505,10 +1543,11 @@ def step_backward_errors(args, device):
 
 def phase_contrastive(device, card, s, capacity) -> tuple[dict[str, int], object, object]:
     """contrastive_step at full width on phase 2's scene; returns the forward
-    and backward kernels' C = 32 launches over the main-path window, and the
-    trained feature state and scale gate."""
+    and backward kernels' C = 32 launches and the smoothing kernels' over the
+    main-path window, and the trained feature state and scale gate."""
     from seganygaussians_torch.models import feature_gaussians as fgm
     from seganygaussians_torch.models import optim
+    from seganygaussians_torch.ops import smooth_cuda
     from seganygaussians_torch.ops.blend_cuda import BACKWARD, FORWARD
     from seganygaussians_torch.ops.quantile import fit_quantile_transform
     from seganygaussians_torch.ops.rasterize import RasterConfig
@@ -1547,6 +1586,7 @@ def phase_contrastive(device, card, s, capacity) -> tuple[dict[str, int], object
     consts = ct.ContrastiveConsts(
         upper_bound_scale=torch.tensor(float(all_scales.max()), device=device),
         qt=fit_quantile_transform(torch.from_numpy(all_scales).to(device)),
+        reverse_maps=fgm.reverse_maps(state, hyper.smooth_type),  # as the trainer builds them
     )
     gate = init_scale_gate(torch.Generator().manual_seed(23), 32, device=device)
     gate_opt = optim.adam_init(gate)
@@ -1595,9 +1635,11 @@ def phase_contrastive(device, card, s, capacity) -> tuple[dict[str, int], object
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    # --- the main path: counts at 0 just before, read just after.
-    FORWARD.reset_counts()
-    BACKWARD.reset_counts()
+    # --- the main path: counts at 0 just before, read just after; reverse
+    # maps built at a call counted (the trainer's own are given).
+    builds = CallCount(smooth_cuda, "reverse_map")
+    for kernel in (FORWARD, BACKWARD, smooth_cuda.FORWARD, smooth_cuda.BACKWARD):
+        kernel.reset_counts()
     step_ms, host_ms, losses = [], [], []
     for it in range(N_CONTRASTIVE_STEPS):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1612,11 +1654,17 @@ def phase_contrastive(device, card, s, capacity) -> tuple[dict[str, int], object
         losses.append(float(aux["loss"]))
         check(math.isfinite(losses[-1]), f"contrastive step {it + 1}: loss {losses[-1]}")
     fwd, bwd = dict(FORWARD.launches_by_channels), dict(BACKWARD.launches_by_channels)
+    smooth = (smooth_cuda.FORWARD.launches, smooth_cuda.BACKWARD.launches)
+    smooth_by_norm = (dict(smooth_cuda.FORWARD.launches_by_channels),
+                      dict(smooth_cuda.BACKWARD.launches_by_channels))
+    builds.restore()
     # ---
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n = N_CONTRASTIVE_STEPS
     check(fwd[32] == n and sum(fwd.values()) == n, f"forward launches {fwd} over {n} steps")
     check(bwd[32] == n and sum(bwd.values()) == n, f"backward launches {bwd} over {n} steps")
+    check(smooth == (n, n) and builds.calls == 0, f"smoothing launches (forward, backward) "
+          f"{smooth} and {builds.calls} reverse maps built over {n} steps")
     for name, x in (("features", state.point_features), ("mu", state.opt.mu.point_features),
                     ("nu", state.opt.nu.point_features), ("gate.w", gate.w), ("gate.b", gate.b)):
         check(bool(torch.isfinite(x).all()), f"non-finite {name}")
@@ -1627,11 +1675,12 @@ def phase_contrastive(device, card, s, capacity) -> tuple[dict[str, int], object
           f"(per-step losses {losses[0]:.4f} .. {losses[-1]:.4f}); ms/step median "
           f"{float(np.median(step_ms)):.3f} (device, CUDA events; host "
           f"{float(np.median(host_ms)):.3f}); forward launches {fwd}, backward launches {bwd}; "
+          f"smoothing launches (forward, backward) {smooth}, no reverse map built; "
           f"rfn {float(aux['rfn']):.4f}, cos_pos {float(aux['cosine_pos']):.4f}, cos_neg "
           f"{float(aux['cosine_neg']):.4f}; peak memory {peak_gb:.2f} GB  [{card}]")
     print(f"phase 8: contrastive-step stages (one instrumented step), device ms: "
           f"{json.dumps({k: round(v, 3) for k, v in stages.items()})}  [{card}]")
-    return {"fwd": fwd[32], "bwd": bwd[32]}, state, gate
+    return {"fwd": fwd[32], "bwd": bwd[32], "smooth": smooth_by_norm}, state, gate
 
 
 def contrastive_metrics(device, src, model_dir, num_rays, capacity, trained=False) -> dict:
@@ -2270,7 +2319,8 @@ def phase_session(device, card, s, fs, gate, capacity) -> dict:
     full width on phase 2's 3M-Gaussian scene and phase 8's feature field and
     gate, orbiting at 1297×840; the web GUI and the SIBR viewer over
     loopback; sessions at C = 6, 16 and 24.  Returns the forward launches
-    by instance."""
+    by instance, and the smoothing kernels' launches with the smoothing
+    calls."""
     import io
     import threading
     import urllib.request
@@ -2279,6 +2329,7 @@ def phase_session(device, card, s, fs, gate, capacity) -> dict:
 
     from seganygaussians_torch.models import feature_gaussians as fgm
     from seganygaussians_torch.models import gaussians as gm
+    from seganygaussians_torch.ops import smooth_cuda
     from seganygaussians_torch.ops.blend_cuda import BACKWARD, FORWARD, instance_name
     from seganygaussians_torch.ops.quantile import fit_quantile_transform
     from seganygaussians_torch.ops.rasterize import RasterConfig
@@ -2320,9 +2371,11 @@ def phase_session(device, card, s, fs, gate, capacity) -> dict:
         ms[name] = float(np.median(times))
         return out
 
-    # --- the main path: counts at 0 just before, read just after.
-    FORWARD.reset_counts()
-    BACKWARD.reset_counts()
+    # --- the main path: counts at 0 just before, read just after; every
+    # smoothing call (the session's and this phase's own) counted.
+    smoothings = CallCount(fgm, "smoothed_point_features")
+    for kernel in (FORWARD, BACKWARD, smooth_cuda.FORWARD, smooth_cuda.BACKWARD):
+        kernel.reset_counts()
     rgb = frames("render_rgb", session.render_rgb, "C=3")
     check(rgb.shape == (H_FULL, W_FULL, 3) and np.isfinite(rgb).all() and rgb.std() > 0.01,
           "session RGB frame")
@@ -2498,10 +2551,16 @@ def phase_session(device, card, s, fs, gate, capacity) -> dict:
     torch.cuda.synchronize()
     launches = dict(FORWARD.launches_by_instance)
     bwd = BACKWARD.launches
+    smooth = (smooth_cuda.FORWARD.launches, smooth_cuda.BACKWARD.launches)
+    smooth_by_norm = (dict(smooth_cuda.FORWARD.launches_by_channels),
+                      dict(smooth_cuda.BACKWARD.launches_by_channels))
+    smoothings.restore()
     # ---
     check(launches == {k: v for k, v in issued.items() if v},
           f"session launches by instance {launches} for the renders issued {issued}")
     check(bwd == 0, f"{bwd} backward launches in the session")
+    check(smoothings.calls > 0 and smooth == (smoothings.calls, 0),
+          f"smoothing launches (forward, backward) {smooth} for {smoothings.calls} calls")
     narrow_err = {}
     for c, (session_c, fmap_c, _) in narrow.items():
         d = blend_inputs(geom.xyz, fgm.get_opacity(geom)[:, 0], fgm.get_scaling(geom),
@@ -2535,9 +2594,11 @@ def phase_session(device, card, s, fs, gate, capacity) -> dict:
           f"C={c} frame {frame_ms:.3f} ms (device), vs the plain blend on {N_SUBSET_TILES} "
           f"tiles max |kernel - plain| {narrow_err[c]:.3g}"
           for c, (_, _, frame_ms) in narrow.items())
-          + f"; forward launches by instance {launches} for the renders issued {issued}; peak "
+          + f"; forward launches by instance {launches} for the renders issued {issued}; "
+          f"smoothing launches (forward, backward) {smooth} for {smoothings.calls} calls; peak "
           f"memory over the phase {peak_gb:.2f} GB  [{card}]")
-    return {"launches": launches, "pixel_err": pixel_err, "narrow_err": max(narrow_err.values())}
+    return {"launches": launches, "pixel_err": pixel_err, "narrow_err": max(narrow_err.values()),
+            "smooth": smooth_by_norm}
 
 
 def plain_chunks(d, tiles, g_tiles, g_final_t, chunk):
@@ -3205,21 +3266,189 @@ def phase_preprocess(device, card) -> list[dict]:
     return entries
 
 
+def grouped_column_error(got, want, zero) -> float:
+    """:func:`prep_column_error` over the rows ``zero`` marks and over the
+    others apart: an all-zero feature row's gradient is its upstream sum
+    times the normalisation's 1/ε (1e6 or 1e9), and on a scale shared with
+    it every other row's gap would vanish."""
+    return max(prep_column_error(got[m], want[m]) for m in (zero, ~zero) if bool(m.any()))
+
+
+def smooth_bytes(n, d, k, kd, named, first) -> tuple[int, int]:
+    """Bytes each smoothing kernel moves for one map of ``n`` rows and ``k``
+    columns, ``kd`` of them drawn, ``named`` rows that some entry names;
+    the first map's launch writes the output, a later one reads and adds.
+    Forward: kd neighbour rows and their int64 indices read, the output row
+    written.  Backward: the offsets, every entry (int32, drawn or not), the
+    upstream row of each drawn entry, a named row's own features, and the
+    gradient row written.  Each row counted as read from HBM: where a map
+    names few rows (a coarse level), L2 serves repeats and a kernel can
+    beat this bound."""
+    row = d * 4
+    fwd = n * kd * (row + 8) + (n * row if first else 2 * n * row)
+    bwd = ((n + 1) * 4 + n * k * 4 + n * kd * row + named * row
+           + (n * row if first else 2 * named * row))
+    return fwd, bwd
+
+
+def phase_smoothing(device, card) -> list[dict]:
+    """The smoothing kernel pair at the main path's shapes against the plain
+    path and autograd through it, each comparison with a witness that it
+    can fail; times, byte bounds and the plain path's times."""
+    from seganygaussians_torch.models import feature_gaussians as fgm
+    from seganygaussians_torch.ops import smooth_cuda
+
+    fwd_k, bwd_k = smooth_cuda.FORWARD, smooth_cuda.BACKWARD
+    d = 32
+    g = torch.Generator(device=device).manual_seed(37)
+    xyz = torch.rand(N_MAIN, 3, generator=g, device=device)
+    pf = torch.randn(N_MAIN, d, generator=g, device=device) * 1e-2
+    pf[::1000] = 0.0  # all-zero rows: a finite mean and gradient
+    zero = (pf == 0).all(dim=1)
+    zeros = torch.zeros(N_MAIN, 4, device=device)
+    geom = fgm.FrozenGeometry(xyz=xyz, scaling=zeros[:, :3], rotation=zeros,
+                              opacity=zeros[:, :1],
+                              alive=torch.ones(N_MAIN, dtype=torch.bool, device=device))
+    t0 = time.perf_counter()
+    smooth_map = fgm.build_smooth_map(xyz, 16)
+    state = fgm.FeatureState(geom=geom, point_features=pf, smooth_map=smooth_map, opt=None)
+    levels = fgm.build_multi_res_maps(state, torch.Generator(device=device).manual_seed(38))
+    torch.cuda.synchronize()
+    maps_s = time.perf_counter() - t0
+    cols = torch.randperm(16, generator=g, device=device)[:8]
+    cases = (("K=8 of 16", "traditional", (smooth_map,), cols),
+             ("K=16", "traditional", (smooth_map,), None),
+             ("levels 4/4/16", "multi_res", levels, None))
+    entries = []
+    for name, norm, maps, c in cases:
+        kd = [m.shape[1] if c is None else c.numel() for m in maps]
+        build_ms = float(np.median(cuda_time_ms(
+            lambda: [smooth_cuda.reverse_map(m) for m in maps], warmup=1, iters=3)))
+        reverse = tuple(smooth_cuda.reverse_map(m) for m in maps)
+        named = [int((torch.diff(r.offsets) > 0).sum()) for r in reverse]
+        g_out = torch.randn(N_MAIN, d, generator=g, device=device)
+        x = pf.clone().requires_grad_(True)
+
+        # The main path's call, its launches counted from 0.
+        torch.cuda.synchronize()
+        fwd_k.reset_counts()
+        bwd_k.reset_counts()
+        out = smooth_cuda.smooth_mean(x, maps, norm, c, reverse)
+        (grad,) = torch.autograd.grad(out, x, g_out)
+        torch.cuda.synchronize()
+        launches = (fwd_k.launches, bwd_k.launches)
+        check(launches == (len(maps), len(maps)),
+              f"phase 16: {name}: launches (forward, backward) {launches} for {len(maps)} maps")
+        check(bool(torch.isfinite(out).all()) and bool(torch.isfinite(grad).all()),
+              f"phase 16: {name}: a non-finite mean or gradient")
+
+        def plain(x, drop=False):
+            """The plain path's sum over the maps; ``drop``: the last map
+            smoothed over one column fewer (the witness)."""
+            total = 0
+            for i, m in enumerate(maps):
+                cm = c
+                if drop and i == len(maps) - 1:
+                    cm = (torch.arange(m.shape[1] - 1, device=device) if c is None else c[:-1])
+                total = total + smooth_cuda.smooth_forward_plain(x, m, cm, norm)
+            return total
+
+        want = plain(x)
+        (want_grad,) = torch.autograd.grad(want, x, g_out, retain_graph=True)
+        fwd_err = grouped_column_error(out.detach(), want.detach(), zero)
+        bwd_err = grouped_column_error(grad, want_grad, zero)
+        short = plain(x, drop=True)
+        (short_grad,) = torch.autograd.grad(short, x, g_out)
+        fwd_wit = grouped_column_error(out.detach(), short.detach(), zero)
+        bwd_wit = grouped_column_error(grad, short_grad, zero)
+        del short, short_grad
+        check(fwd_err <= TOL_SMOOTH_FWD and bwd_err <= TOL_SMOOTH_BWD,
+              f"phase 16: {name}: the kernels differ from the plain path by {fwd_err:.3g} "
+              f"(forward, tolerance {TOL_SMOOTH_FWD}) and {bwd_err:.3g} (gradient, tolerance "
+              f"{TOL_SMOOTH_BWD}) of a column's largest value")
+        check(fwd_wit >= WITNESS * TOL_SMOOTH_FWD and bwd_wit >= WITNESS * TOL_SMOOTH_BWD,
+              f"phase 16: {name}: the plain path over one column fewer reads only {fwd_wit:.3g}"
+              f" / {bwd_wit:.3g} from the kernels: the comparison cannot tell a wrong kernel")
+
+        # Times: each kernel by CUDA events, one launch a map as the main
+        # path makes them; the plain path's forward and autograd backward.
+        out_buf, grad_buf = torch.empty_like(pf), torch.empty_like(pf)
+
+        def fwd_one(i, m):
+            fwd_k(pf, m, c, out_buf, norm, accumulate=i > 0)
+
+        def bwd_one(i, m, r):
+            bwd_k(pf, g_out, m, r, c, grad_buf, norm, accumulate=i > 0)
+
+        fwd_ms = float(np.median(cuda_time_ms(
+            lambda: [fwd_one(i, m) for i, m in enumerate(maps)], warmup=2, iters=10)))
+        bwd_ms = float(np.median(cuda_time_ms(
+            lambda: [bwd_one(i, m, r) for i, (m, r) in enumerate(zip(maps, reverse))],
+            warmup=2, iters=10)))
+        by_map = []
+        if len(maps) > 1:
+            for i, (m, r) in enumerate(zip(maps, reverse)):
+                by_map.append((
+                    float(np.median(cuda_time_ms(lambda: fwd_one(i, m), warmup=1, iters=10))),
+                    float(np.median(cuda_time_ms(lambda: bwd_one(i, m, r), warmup=1, iters=10)))))
+        with torch.no_grad():
+            plain_fwd_ms = float(np.median(cuda_time_ms(lambda: plain(pf), warmup=1, iters=3)))
+        plain_bwd_ms = float(np.median(cuda_time_ms(lambda: torch.autograd.grad(
+            want, x, g_out, retain_graph=True), warmup=1, iters=3)))
+        del want, want_grad, out, grad, x, out_buf, grad_buf
+        nbytes = [smooth_bytes(N_MAIN, d, m.shape[1], kd[i], named[i], i == 0)
+                  for i, m in enumerate(maps)]
+        fwd_bytes, bwd_bytes = (sum(b[side] for b in nbytes) for side in (0, 1))
+        fwd_bound = fwd_bytes / PEAK_BYTES_PER_S * 1e3
+        bwd_bound = bwd_bytes / PEAK_BYTES_PER_S * 1e3
+        rev_bytes = sum(r.offsets.numel() * 4 + r.entries.numel() * 4 for r in reverse)
+        in_degree = [int(torch.diff(r.offsets).max()) for r in reverse]
+        level_note = "" if not by_map else "; by map (forward, backward ms, share of its " \
+            "bounds): " + ", ".join(
+                f"K={m.shape[1]} {f:.3f} ({b[0] / PEAK_BYTES_PER_S * 1e3 / f:.0%}) / {bw:.3f} "
+                f"({b[1] / PEAK_BYTES_PER_S * 1e3 / bw:.0%}), {nm} rows named"
+                for m, (f, bw), b, nm in zip(maps, by_map, nbytes, named))
+        print(f"phase 16: {name}: {N_MAIN} x {d}, columns {kd}: forward against the plain path "
+              f"{fwd_err:.3g} of a column's largest value (one column fewer: {fwd_wit:.3g}), "
+              f"gradient against autograd {bwd_err:.3g} ({bwd_wit:.3g}); forward {fwd_ms:.3f} ms "
+              f"(bound {fwd_bound:.3f} ms, {fwd_bound / fwd_ms:.1%}; plain {plain_fwd_ms:.3f}), "
+              f"backward {bwd_ms:.3f} ms (bound {bwd_bound:.3f} ms, {bwd_bound / bwd_ms:.1%}; "
+              f"plain autograd {plain_bwd_ms:.3f}); reverse maps {build_ms:.2f} ms, "
+              f"{rev_bytes} B, largest in-degree {in_degree}{level_note}  [{card}]")
+        for kernel, side, err, ms, plain_ms, bound_ms, nb in (
+                ("smooth_fwd", 0, fwd_err, fwd_ms, plain_fwd_ms, fwd_bound, fwd_bytes),
+                ("smooth_bwd", 1, bwd_err, bwd_ms, plain_bwd_ms, bwd_bound, bwd_bytes)):
+            entries.append({
+                "name": f"{kernel}[{name}]", "route": "cuda",
+                "source": "seganygaussians_torch/csrc/smooth.cu",
+                "replaces": None,  # XLA's gather and mean in the JAX package, no TPU kernel
+                "max_rel_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": "bytes", "bytes": nb, "share_of_bound": bound_ms / ms,
+                "library_ms": None, "ms_by_map": [t[side] for t in by_map] or None,
+                "normalisation": norm, "launches_phase16": launches[side],
+            })
+        del reverse, g_out
+        torch.cuda.empty_cache()
+    print(f"phase 16: the K=16 map and the three levels built in {maps_s:.1f} s")
+    return entries
+
+
 def build_kernels() -> None:
     """One nvcc per kernel source, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from seganygaussians_torch.ops import preprocess_cuda
+    from seganygaussians_torch.ops import preprocess_cuda, smooth_cuda
     from seganygaussians_torch.ops.blend_cuda import BACKWARD, FORWARD
     from seganygaussians_torch.tools.bench_scan_variants import SCAN
 
-    # The preprocess pair shares one library: its forward builds it.
-    kernels = (FORWARD, BACKWARD, SCAN, preprocess_cuda.FORWARD)
+    # The preprocess and the smoothing pairs share a library each: the forward builds it.
+    kernels = (FORWARD, BACKWARD, SCAN, preprocess_cuda.FORWARD, smooth_cuda.FORWARD)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as pool:
         for future in [pool.submit(k.library) for k in kernels]:
             future.result()
     preprocess_cuda.BACKWARD.library()
+    smooth_cuda.BACKWARD.library()
     print(f"kernel builds (in parallel) + load: {time.perf_counter() - t0:.1f} s")
     for kernel in kernels:
         for ln in kernel.build_log.splitlines():
@@ -3280,6 +3509,22 @@ def main() -> int:
         shutil.rmtree(model_dir, ignore_errors=True)
     torch.cuda.empty_cache()
     prep_entries = timed("phase 15", phase_preprocess, device, card)
+    torch.cuda.empty_cache()
+    smooth_entries = timed("phase 16", phase_smoothing, device, card)
+    # Each smoothing instance's launches over the windows that ran it, each
+    # counted from 0: phase 8's contrastive steps (one each way a step) and
+    # phase 12's session (one forward a smoothing call, no backward) run the
+    # K-neighbour normalisation; the levels' only here, in phase 16's call.
+    from seganygaussians_torch.ops.smooth_cuda import NORMS
+
+    for entry in smooth_entries:
+        side = int(entry["name"].startswith("smooth_bwd"))
+        norm = NORMS.index(entry["normalisation"])
+        entry["launches_contrastive_step"] = step_launches["smooth"][side][norm]
+        entry["launches_session"] = session["smooth"][side][norm]
+        entry["launches"] = (entry["launches_contrastive_step"] + entry["launches_session"]
+                             + entry["launches_phase16"])
+        check(entry["launches"] > 0, f"{entry['name']} was not launched on its main path")
     # The C = 32 kernels' launches on this slice's paths, beside phase 2's and 5's.
     for entry in entries:
         if entry["name"].endswith("[C=32]"):
@@ -3334,6 +3579,7 @@ def main() -> int:
     entries.append(depth_entry)
     entries += scan_entries
     entries += prep_entries
+    entries += smooth_entries
     worst = max(err_full, depth_entry["max_abs_err"], query["pixel_err"], session["pixel_err"],
                 session["narrow_err"], *small_errors.values())
     print(f"max |kernel - plain| over all comparisons: forward {worst:.3g}, "

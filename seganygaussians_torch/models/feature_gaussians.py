@@ -9,16 +9,22 @@ Feature smoothing: mean of L2-normalised features over the K nearest
 neighbours, self included as column 0 of the Morton-window KNN map.  Dropout
 picks one random ⌊K·dropout⌋-subset of neighbour columns per call (the same
 subset for every point), like the reference's ``randperm(K)[:K·dropout]``.
+On CUDA tensors the smoothing runs as the gather-mean kernel pair of
+``ops/smooth_cuda.py``, which reads the neighbour rows in place and, for the
+gradient, each map's reverse (built once by the trainer, or at the call);
+CPU tensors take the plain gather below.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Mapping, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from seganygaussians_torch.models import optim
+from seganygaussians_torch.ops import smooth_cuda
 from seganygaussians_torch.ops.knn import knn_map, knn_query_source, mean_sq_dist_to_3nn
 from seganygaussians_torch.ops.transforms import inverse_sigmoid
 from seganygaussians_torch.utils import tracing
@@ -155,15 +161,19 @@ def dropout_columns(generator: torch.Generator, k: int, dropout: float) -> Optio
 def smoothed_point_features(
     state: FeatureState,
     cols: Optional[torch.Tensor] = None,
+    reverse: Optional[Sequence[smooth_cuda.ReverseMap]] = None,
 ) -> torch.Tensor:
     """KNN-smoothed features: L2-normalise, then average over the neighbour
-    columns ``cols`` (from :func:`dropout_columns`), or all K if None."""
+    columns ``cols`` (from :func:`dropout_columns`), or all K if None.
+    ``reverse``, ``(smooth_cuda.reverse_map(state.smooth_map),)``, serves the
+    CUDA gradient; without it a gradient builds it at the call."""
     with tracing.span("smoothing"):
         # rsqrt(Σx²+ε) form: finite gradient even for all-zero feature rows.
         pf = state.point_features
-        normed = pf * torch.rsqrt(torch.sum(pf * pf, dim=-1, keepdim=True) + 1e-12)
-        nbrs = state.smooth_map if cols is None else state.smooth_map[:, cols.to(pf.device)]
-        return torch.mean(normed[nbrs], dim=1)
+        cols = None if cols is None else cols.to(pf.device)
+        if pf.is_cuda:
+            return smooth_cuda.smooth_mean(pf, (state.smooth_map,), "traditional", cols, reverse)
+        return smooth_cuda.smooth_forward_plain(pf, state.smooth_map, cols, "traditional")
 
 
 def smooth_point_features_inplace(state: FeatureState, smoothed_dim: int = 24) -> FeatureState:
@@ -205,27 +215,45 @@ def build_multi_res_maps(
     return tuple(maps)
 
 
+@contextlib.contextmanager
+def _level(i: int, nbrs: torch.Tensor):
+    """Level i's span round its gather and mean, and its count of neighbour rows."""
+    with tracing.span(f"smoothing.level{i}"):
+        yield
+    tracing.count(f"smoothing.rows.level{i}", nbrs.numel())
+
+
 def multi_res_smoothed_features(
     state: FeatureState,
     maps: Sequence[torch.Tensor],
     smooth_weights: Optional[torch.Tensor] = None,  # (C, L)
+    reverse: Optional[Sequence[smooth_cuda.ReverseMap]] = None,
 ) -> torch.Tensor:
     """Sum over levels of (optionally per-point-weighted) K_i-neighbour means
     of the L2-normalised features; differentiable with respect to both
-    ``point_features`` and ``smooth_weights``.
+    ``point_features`` and ``smooth_weights``.  On CUDA tensors one kernel
+    launch a level adds into one output; ``reverse`` (one
+    ``smooth_cuda.reverse_map`` a level) serves its gradient.  The kernel
+    takes no weights: weighted levels are for CPU tensors only.
 
     Traced, each level's gather and mean is a span ``saga:smoothing.level<i>``
     and counts its neighbour rows (N·K_i) in ``smoothing.rows.level<i>``,
     their sum in ``smoothing.rows``."""
     with tracing.span("smoothing"):
         pf = state.point_features
-        normed = pf / torch.linalg.norm(pf, dim=-1, keepdim=True).clamp_min(1e-9)
-        out = torch.zeros_like(normed)
-        for i, nbrs in enumerate(maps):
-            with tracing.span(f"smoothing.level{i}"):
-                level = torch.mean(normed[nbrs], dim=1)
-            tracing.count(f"smoothing.rows.level{i}", nbrs.numel())
-            out = out + (level if smooth_weights is None else smooth_weights[:, i : i + 1] * level)
+        if pf.is_cuda and smooth_weights is not None:
+            raise NotImplementedError("per-point level weights on CUDA tensors: the smoothing "
+                                      "kernel takes none (weighted levels run on the CPU)")
+        if pf.is_cuda:
+            out = smooth_cuda.smooth_mean(pf, maps, "multi_res", reverse=reverse, level=_level)
+        else:
+            normed = smooth_cuda.normalise_plain(pf, "multi_res")
+            out = torch.zeros_like(normed)
+            for i, nbrs in enumerate(maps):
+                with _level(i, nbrs):
+                    level = torch.mean(normed[nbrs], dim=1)
+                out = out + (level if smooth_weights is None
+                             else smooth_weights[:, i : i + 1] * level)
         tracing.count("smoothing.rows", sum(nbrs.numel() for nbrs in maps))
         return out
 
@@ -236,19 +264,34 @@ def smooth_features(
     cols: Optional[torch.Tensor] = None,
     maps: Optional[Sequence[torch.Tensor]] = None,
     smooth_weights: Optional[torch.Tensor] = None,
+    reverse: Optional[Sequence[smooth_cuda.ReverseMap]] = None,
 ) -> torch.Tensor:
     """Smoothing dispatch: None/'none' → raw features, 'traditional' → K-NN
     dropout mean over ``cols``, 'multi_res' → per-level subsampled means
-    (needs ``maps`` from :func:`build_multi_res_maps`)."""
+    (needs ``maps`` from :func:`build_multi_res_maps`).  ``reverse``: the
+    reverse of each map smoothed over (:func:`reverse_maps`), for the CUDA
+    gradient."""
     if smooth_type in (None, "none"):
         return state.point_features
     if smooth_type == "traditional":
-        return smoothed_point_features(state, cols)
+        return smoothed_point_features(state, cols, reverse)
     if smooth_type == "multi_res":
         if maps is None:
             raise ValueError("multi_res smoothing needs maps: build_multi_res_maps first")
-        return multi_res_smoothed_features(state, maps, smooth_weights)
+        return multi_res_smoothed_features(state, maps, smooth_weights, reverse)
     raise ValueError(f"unknown smooth_type {smooth_type!r}")
+
+
+def reverse_maps(
+    state: FeatureState, smooth_type: Optional[str], maps: Optional[Sequence[torch.Tensor]] = None
+) -> tuple:
+    """The reverse of each map that ``smooth_features`` averages over, for the
+    kernel's gradient, built once; () where no kernel reads one (no
+    smoothing, or features on the CPU, whose gradient is autograd's)."""
+    if not state.point_features.is_cuda or smooth_type not in ("traditional", "multi_res"):
+        return ()
+    over = (state.smooth_map,) if smooth_type == "traditional" else maps
+    return tuple(smooth_cuda.reverse_map(nbrs) for nbrs in over)
 
 
 class GridLevels(NamedTuple):

@@ -90,6 +90,10 @@ class ContrastiveConsts(NamedTuple):
     # Per-level neighbour maps when hyper.smooth_type == 'multi_res' (built
     # once by fgm.build_multi_res_maps); () otherwise.
     multi_res_maps: tuple = ()
+    # The reverse of each map the smoothing averages over (fgm.reverse_maps),
+    # read by the CUDA smoothing kernel's gradient; () builds them at each
+    # step (CPU features need none).
+    reverse_maps: tuple = ()
 
 
 class StepDraws(NamedTuple):
@@ -266,7 +270,8 @@ def _block_loss(
     with ieee_fp32_matmul():
         fs = feat_state._replace(point_features=point_features)
         smoothed = fgm.smooth_features(
-            fs, hyper.smooth_type, cols=draws.smooth_cols, maps=consts.multi_res_maps or None
+            fs, hyper.smooth_type, cols=draws.smooth_cols, maps=consts.multi_res_maps or None,
+            reverse=consts.reverse_maps or None,
         )
         # The smoothers L2-normalise before the K-mean; the render normalises
         # each point's feature again, as the reference does.
@@ -471,6 +476,7 @@ class ContrastiveTrainer:
             qt=fit_quantile_transform(torch.from_numpy(all_scales).to(self.device),
                                       output="uniform"),
             multi_res_maps=maps,
+            reverse_maps=fgm.reverse_maps(self.feat_state, self.hyper.smooth_type, maps),
         )
         self.max_masks = max(len(np.asarray(c.mask_scales)) for c in self.cameras)
         self._bundles: dict[int, MaskBundle] = {}

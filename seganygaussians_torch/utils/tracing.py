@@ -75,13 +75,14 @@ def _event():
 
 
 _KERNEL_MODULES = (("seganygaussians_torch.ops.blend_cuda", "blend"),
-                   ("seganygaussians_torch.ops.preprocess_cuda", "preprocess"))
+                   ("seganygaussians_torch.ops.preprocess_cuda", "preprocess"),
+                   ("seganygaussians_torch.ops.smooth_cuda", "smooth"))
 
 
 def _kernels() -> dict:
     """The hand-written kernels' launch counters (``blend_fwd``,
-    ``blend_bwd``, ``preprocess_fwd``, ``preprocess_bwd``), of each kernels
-    module that is loaded."""
+    ``blend_bwd``, ``preprocess_fwd``, ``preprocess_bwd``, ``smooth_fwd``,
+    ``smooth_bwd``), of each kernels module that is loaded."""
     out = {}
     for name, prefix in _KERNEL_MODULES:
         mod = sys.modules.get(name)

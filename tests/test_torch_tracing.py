@@ -397,3 +397,65 @@ def test_preprocess_kernels_launches_reach_spans_json(tmp_path, monkeypatch):
     launches = json.loads((tmp_path / "spans.json").read_text())["launches"]
     assert launches["preprocess_fwd"] == 2 and launches["preprocess_bwd"] == 1
     assert launches["blend_fwd"] == 0 and launches["blend_bwd"] == 0
+
+
+def test_smoothing_kernels_launches_levels_and_reverse_builds_reach_spans_json(tmp_path,
+                                                                                monkeypatch):
+    """Through the smoothing kernels (stood in by their plain versions, as the
+    CPU has no CUDA), a traced multi-resolution forward and gradient keeps one
+    span and one row count a level, and ``spans.json`` counts a launch a level
+    each way and the reverse maps built at the call: none when they are given."""
+    from test_torch_smooth import stand_in_kernels
+
+    from seganygaussians_torch.ops import smooth_cuda
+
+    assert tracing._kernels()["smooth_fwd"] is smooth_cuda.FORWARD
+    assert tracing._kernels()["smooth_bwd"] is smooth_cuda.BACKWARD
+    stand_in_kernels(monkeypatch)
+    n = 64
+    g = torch.Generator().manual_seed(0)
+    maps = tuple(torch.randint(0, n, (n, k), generator=g) for k in (4, 4, 16))
+    x = torch.randn(n, D, generator=g).requires_grad_(True)
+    built = []
+    for reverse in (None, tuple(smooth_cuda.reverse_map(m) for m in maps)):
+        window = tracing.ProfileWindow(str(tmp_path), first=0, count=1)
+        window.after(0)
+        out = smooth_cuda.smooth_mean(x, maps, "multi_res", reverse=reverse, level=fgm._level)
+        torch.autograd.grad(out.sum(), [x])
+        window.close()
+        s = json.loads((tmp_path / "spans.json").read_text())
+        assert {k: v["count"] for k, v in s["spans"].items()} == {
+            "smoothing.level0": 1, "smoothing.level1": 1, "smoothing.level2": 1}
+        assert s["launches"]["smooth_fwd"] == 3 and s["launches"]["smooth_bwd"] == 3
+        assert {k: v for k, v in s["counters"].items() if k.startswith("smoothing.rows.")} == {
+            "smoothing.rows.level0": n * 4, "smoothing.rows.level1": n * 4,
+            "smoothing.rows.level2": n * 16}
+        built.append(s["counters"]["smoothing.reverse_builds"])
+    assert built == [3, 0]
+
+
+def test_multi_res_levels_are_recorded_with_the_kernel_on_the_card():
+    """On the card, the kernel path keeps the level spans (timed on the device)
+    and row counters, and a trainer-style call with its reverse maps builds none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernel has no CPU or interpret mode)")
+    from seganygaussians_torch.ops import smooth_cuda
+
+    dev = torch.device("cuda")
+    n = 4096
+    g = torch.Generator(device=dev).manual_seed(0)
+    maps = tuple(torch.randint(0, n, (n, k), generator=g, device=dev) for k in (4, 4, 16))
+    pf = torch.randn(n, 32, generator=g, device=dev).requires_grad_(True)
+    state = fgm.FeatureState(geom=None, point_features=pf, smooth_map=maps[2], opt=None)
+    reverse = tuple(smooth_cuda.reverse_map(m) for m in maps)
+    f0, b0 = smooth_cuda.FORWARD.launches, smooth_cuda.BACKWARD.launches
+    _, s = profiled(lambda: torch.autograd.grad(
+        fgm.smooth_features(state, "multi_res", maps=maps, reverse=reverse).sum(), [pf]))
+    assert smooth_cuda.FORWARD.launches - f0 == 3 and smooth_cuda.BACKWARD.launches - b0 == 3
+    for i in range(3):
+        level = s["spans"][f"smoothing.level{i}"]
+        assert level["count"] == 1 and level["device_ms"] is not None
+    assert s["counters"]["smoothing.rows.level2"] == n * 16
+    assert s["counters"]["smoothing.rows"] == n * 24
+    assert s["counters"]["smoothing.reverse_builds"] == 0
+    assert s["launches"]["smooth_fwd"] == 3 and s["launches"]["smooth_bwd"] == 3
